@@ -109,5 +109,8 @@ if __name__ == "__main__":
     parser.add_argument("--n-time", type=int, default=10)
     parser.add_argument("--seed", type=int, default=42)
     args = parser.parse_args()
+    from tame.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     main(lr=args.lr, max_iter=args.max_iter, outdir=args.outdir,
          n_nodes=args.n_nodes, n_time=args.n_time, seed=args.seed)

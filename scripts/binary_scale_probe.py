@@ -1,14 +1,15 @@
-"""JJ-bound binary CAVI at scale on the real TPU: n=1000, T=20, r=2.
+"""JJ-bound binary CAVI at scale on the GPU: n=1000, T=20, r=2.
 
 The binary engine has no constant-weight precompute (the JJ weights
 change every iteration), so its per-iteration cost is the O(n^2 T)
 moment/contraction work itself — this probe records it plus recovery
 quality against the generating log-odds.
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp

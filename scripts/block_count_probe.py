@@ -1,9 +1,10 @@
-"""Probe num_blocks tradeoff at the north-star config on TPU: per-iter
+"""Probe num_blocks tradeoff at the north-star config on the GPU: per-iter
 time (slope) and iterations-to-converged for 4/8/16 block phases."""
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import numpy as np

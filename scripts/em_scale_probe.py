@@ -1,9 +1,10 @@
-"""Hyperparameter learning at north-star scale on the real TPU:
+"""Hyperparameter learning at north-star scale on the GPU:
 fit_em at n=2000, T=50, r=4 from a wrong starting guess."""
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import numpy as np
@@ -35,7 +36,7 @@ print(f"phi={h['phi'][-1]:.3f} (true 0.8)  "
 # ---- binary leg (round-5): non-Gaussian EM at scale -----------------------
 # The binary smoothed E-step has no mixed-precision/stats fast path (its
 # weights are iteration-dependent), so the leg runs at n=1000 — still 5x
-# the test scale and on the real chip.
+# the test scale, on the GPU.
 cfgb = ModelConfig(n_nodes=1000, n_time=20, latent_dim=2, seed=1,
                    ar_coefficient=0.8)
 Yb, _ = sample(build_params(cfgb), jax.random.PRNGKey(1), 1000, 20,

@@ -1,7 +1,7 @@
 """Is Jacobi stable at n=2000?  Compares MSE trajectories vs block-GS.
 
-Decides whether the single-pass dual-contraction kernel (Jacobi-only) is
-worth building: Jacobi halves the per-iteration HBM traffic but loses
+Decides whether a single-pass dual contraction (Jacobi-only) is worth
+building: Jacobi halves the per-iteration HBM traffic but loses
 within-sweep freshness, so it only wins if it converges at a workable
 damping without needing ~4x the iterations.
 """

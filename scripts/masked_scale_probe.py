@@ -1,4 +1,4 @@
-"""Masked (missing-data) fit at north-star scale on the real TPU:
+"""Masked (missing-data) fit at north-star scale on the GPU:
 n=2000, T=50, r=4, 30% of dyads hidden.
 
 Measures the per-iteration slope of three configurations:
@@ -13,10 +13,11 @@ Measures the per-iteration slope of three configurations:
 
 Also reports observed-vs-held-out reconstruction MSE of the new path.
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -67,15 +68,6 @@ out, ms_new = slope("masked-new (stats+mp, bf16 mask)", 50, mask=mask,
                     mixed_precision=True, diag_mode="stats")
 print(f"masked-new / dense ratio: {ms_new / ms_dense:.2f}x "
       f"(exact-f32 was {ms_old / ms_dense:.2f}x)", flush=True)
-import os
-
-if os.environ.get("PROBE_PACKED"):
-    # opt-in int8 kernel comparison (measured slower; see
-    # tame/ops/masked_contract.py notes)
-    os.environ["TAME_PACKED_MASK"] = "1"
-    slope("masked (stats+mp, int8 packed mask)", 20, mask=mask,
-          mixed_precision=True, diag_mode="stats")
-    del os.environ["TAME_PACKED_MASK"]
 # Production cadence: evaluating the (cheap but not free) diagnostics
 # every 4th iteration amortizes the two masked diagnostic passes; the
 # update itself is 2 W-passes + 1 mask-pass vs the dense 2 W-passes.

@@ -1,4 +1,4 @@
-"""Guarded Poisson CVI at scale on the real TPU: n=1000, T=20, r=2.
+"""Guarded Poisson CVI at scale on the GPU: n=1000, T=20, r=2.
 
 Like the binary engine, the CVI weights are recomputed every iteration
 (no constant-weight precompute), so per-iteration cost is genuine
@@ -8,10 +8,11 @@ probe records ms/iteration (slope method: two budgets, differenced, so
 compile and fixed costs cancel) and recovery quality against the
 generating log-rates.
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp

@@ -1,13 +1,12 @@
-"""tame — a TPU-native probabilistic-inference framework for temporal
+"""tame — a JAX probabilistic-inference framework for temporal
 Additive-and-Multiplicative-Effects (AME) network models.
 
-A ground-up JAX/XLA/Pallas/pjit re-design with the capabilities of the
-reference package ``Alfieriek/Python-Temporal-AME-SVI`` (mounted read-only at
-``/root/reference``): temporal AME generative models with AR(1) latent
-dynamics, naive and structured mean-field CAVI engines, HMC/SMC posterior
-backends, identifiability alignment, metrics, diagnostics, visualization and
-reproducible experiment harnesses — all batched, jit-compiled and shardable
-over TPU device meshes.
+A ground-up JAX/XLA/pjit re-design with the capabilities of the reference
+package ``Alfieriek/Python-Temporal-AME-SVI``: temporal AME generative
+models with AR(1) latent dynamics, naive and structured mean-field CAVI
+engines, HMC/SMC posterior backends, identifiability alignment, metrics,
+diagnostics, visualization and reproducible experiment harnesses — all
+batched, jit-compiled and shardable over GPU device meshes.
 
 Quick start
 -----------

@@ -3,5 +3,7 @@
 import sys
 
 from tame.cli import main
+from tame.utils.cache import enable_compile_cache
 
+enable_compile_cache()
 sys.exit(main())

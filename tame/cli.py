@@ -331,7 +331,7 @@ def _cmd_bench(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="tame", description="TPU-native temporal-AME inference")
+        prog="tame", description="temporal-AME inference")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("demo", help="canonical 9-step workflow")

@@ -63,22 +63,22 @@ class InferenceConfig:
 
     ``update_mode``:
       * ``"jacobi"``  — all (node, time) factors updated simultaneously from
-        the previous iterate.  Fully batched; the TPU-native default.  Same
+        the previous iterate.  Fully batched.  Same
         fixed points as the reference's sweep, different trajectory.
       * ``"block"``   — block Gauss–Seidel: nodes in a few sequential
         groups, each group batched; near-GS stability at high damping with
-        full TPU parallelism inside a group.  Preferred at large n.
+        full device parallelism inside a group.  Preferred at large n.
       * ``"seq"``     — Gauss–Seidel sweep over nodes (and times within a
         node), matching the reference trajectory semantics
         (``naive_mf.py:203-205``, ``naive_mf.py:235``).  Compiled via
         ``lax.fori_loop``/``lax.scan``; useful for small-n parity studies.
 
-    ``mixed_precision`` stores the constant dyad-weight tensors in bfloat16
-    and runs the eta contractions as single-pass MXU matmuls with float32
-    accumulation; ``diag_mode="stats"`` computes per-iteration ELBO/MSE from
-    global sufficient statistics instead of an O(n^2 T) residual pass.  Both
-    are production-scale speedups validated against the exact paths
-    (``tame.inference.cavi.fit_cavi``).
+    ``mixed_precision`` stores the constant dyad-weight tensors in
+    bfloat16 and runs the eta contractions as single-pass bf16 tensor-core
+    matmuls with float32 accumulation; ``diag_mode="stats"`` computes
+    per-iteration ELBO/MSE from global sufficient statistics instead of an
+    O(n^2 T) residual pass.  Both are production-scale speedups validated
+    against the exact paths (``tame.inference.cavi.fit_cavi``).
     """
 
     structure: str = "full"  # "diag" | "full" | "block" (naive / good / bad)

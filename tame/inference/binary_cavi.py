@@ -374,11 +374,11 @@ class TemporalAMEBernoulliVI:
     # engine only has the simultaneous (Jacobi) update, but unlike the
     # Gaussian engine its per-dyad weights are BOUNDED by the JJ
     # lambda <= 1/8, which caps the node-coupling growth; the default
-    # lr = 0.8 is measured stable through n = 1000 (PERF.md, real-chip
-    # probe).  If a very large fit oscillates (ELBO ringing), lower lr
-    # toward 0.5, or use the joint-trajectory binary family
-    # (tame.inference.fit_smoothed_family), whose guarded loop
-    # backs off automatically.
+    # lr = 0.8 is measured stable through n = 1000
+    # (scripts/binary_scale_probe.py).  If a very large fit oscillates
+    # (ELBO ringing), lower lr toward 0.5, or use the joint-trajectory
+    # binary family (tame.inference.fit_smoothed_family), whose guarded
+    # loop backs off automatically.
 
     def __init__(self, model, learning_rate: float = 0.8,
                  init_scale: float = 0.1, seed: int = 42,

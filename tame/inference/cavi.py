@@ -11,8 +11,8 @@ policy replaces the reference's two near-duplicate classes
 * ``"block"`` — "bad" structured MF: invert, then zero the additive x
   multiplicative cross blocks (``structured_mf.py:267-273``).
 
-TPU-native formulation
-----------------------
+Formulation
+-----------
 The reference's hottest loop builds, for every (i, j, t), a 2 x d Jacobian
 ``J = [e_a + V_j | e_b + U_j]`` and accumulates ``J' R^-1 J`` and
 ``J' R^-1 y`` (``naive_mf.py:324-374``) — O(n^2 T) Python iterations.  Because
@@ -33,7 +33,7 @@ statistics* per time step:
     with W0 = p Y[...,0] + q Y[...,1] and W1 = q Y[...,0] + p Y[...,1].
 
 W0/W1 and their row-sums depend only on the data — computed once per fit.
-The per-iteration cost is two (n,n,T)x(n,T,r) MXU contractions, O(nT) d x d
+The per-iteration cost is two (n,n,T)x(n,T,r) matrix contractions, O(nT) d x d
 assembly, and one batched d x d solve: O(n^2 T r) FLOPs instead of O(n^2 T)
 interpreted Python.
 
@@ -51,7 +51,6 @@ go through the sampler backends (HMC/NUTS/SMC via
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple, Optional, Tuple
 
 import jax
@@ -60,7 +59,6 @@ from jax import Array
 
 from tame.models.params import AMEParams
 from tame.ops import dyad as dyad_ops
-from tame.ops import fused_fit
 from tame.ops.cholesky import (
     batched_logdet_spd,
     batched_spd_solve,
@@ -117,12 +115,13 @@ def precompute_obs_constants(Y: Array, R_inv: Array,
 def _eta_contract(W: Array, Z: Array) -> Array:
     """The engine's dominant contraction ``einsum("ijt,jtr->itr")``.
 
-    float32 weights use full (6-pass) precision — the TPU default bf16
-    matmul loses too much on these data-sized sums (CLAUDE.md).  bfloat16
-    weights (mixed-precision mode) run one bf16 pass with float32
-    accumulation: half the HBM traffic, 6x less MXU work, and the rounding
-    enters only through the *stored* weights, bounded by bf16's ~0.4 %
-    relative error on the data.
+    float32 weights are pinned to true float32 (``Precision.HIGHEST``): the
+    GPU's default float32 matmul may run in TF32, whose 10-bit mantissa
+    loses too much on these data-sized sums.  bfloat16 weights
+    (mixed-precision mode) run one bf16 tensor-core pass with float32
+    accumulation: half the HBM traffic, and the rounding enters only
+    through the *stored* weights, bounded by bf16's ~0.4 % relative error
+    on the data.
     """
     if W.dtype == jnp.bfloat16:
         return jnp.einsum("ijt,jtr->itr", W, Z.astype(jnp.bfloat16),
@@ -200,11 +199,11 @@ def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
 
     Expands ``sum e0^2`` and ``sum e0_ij e0_ji`` (``e0 = y0 - m``,
     ``m_ij = a_i + b_j + U_i.V_j``) into data constants plus global moments
-    of the variational means.  The only O(n^2 T r) work is ONE MXU pass
-    over ``W0`` (see :func:`_data_mean_cross_terms`), from which the
+    of the variational means.  The only O(n^2 T r) work is ONE contraction
+    pass over ``W0`` (see :func:`_data_mean_cross_terms`), from which the
     data-mean cross terms ``A = sum y0_ij u_ij`` and
     ``B = sum y0_ij u_ji`` are recovered.  Everything else is
-    O(n T (r^2 + 1)) on the VPU — the diagnostics pass costs ~one
+    O(n T (r^2 + 1)) elementwise work — the diagnostics pass costs ~one
     eta-class matmul instead of reading observation-sized tensors.
 
     Returns ``(sum_offdiag e0^2, sum_offdiag e0_ij e0_ji)`` — the same
@@ -272,7 +271,7 @@ def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
     the dense expansion.  Only the model-side moments change: the mask is
     not rank-one, so ``sum_obs m_ij^2`` / ``sum_obs m_ij m_ji`` cannot
     collapse into global moments.  But every term is bilinear in per-node
-    features, so both reduce to ONE eta-class MXU contraction of the mask
+    features, so both reduce to ONE eta-class contraction of the mask
     against a (4 + 5r + 2r^2)-column feature panel:
 
         sum_j M_ij f(i) . g(j)  =  f(i) . (M g)_i
@@ -305,7 +304,7 @@ def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
         (b * b)[..., None],
         U, V, a[..., None] * V, b[..., None] * V, b[..., None] * U,
         VV, OVU], axis=-1)                                # (n, T, K)
-    C = _mask_contract(mask, Z)                           # (m g)_i panels
+    C = _eta_contract(mask, Z)                           # (m g)_i panels
     cnt, Ma, Mb, Mb2 = C[..., 0], C[..., 1], C[..., 2], C[..., 3]
     o = 4
     MU = C[..., o:o + r]
@@ -373,55 +372,12 @@ def _obs_precision(U: Array, V: Array, R_inv: Array) -> Array:
     return _P_from_partner_stats(c, sU, sV, GUU, GVV, GVU, R_inv)
 
 
-class PackedMask(NamedTuple):
-    """Observation mask in the int8 packed-kernel layout
-    (:mod:`tame.ops.masked_contract`): ``blocks`` is
-    ``(num_blocks, T, bs_pad, n_pad) int8``, rows block-major.  Flows
-    through the masked contractions in place of the dense (n, n, T)
-    array, halving the per-iteration mask HBM traffic."""
-
-    blocks: Array
-
-
-def _packed_contract_all(pm: PackedMask, Z: Array) -> Array:
-    """Full-mask partner contraction through the int8 kernel: all block
-    stripes, concatenated back to node order.  Z: (n, T, K)."""
-    from tame.ops.masked_contract import packed_rows_contract
-
-    nb = pm.blocks.shape[0]
-    n = Z.shape[0]
-    bs = n // nb
-    interp = jax.default_backend() == "cpu"
-    outs = [packed_rows_contract(pm.blocks[k], Z, interpret=interp)[:bs]
-            for k in range(nb)]
-    return outs[0] if nb == 1 else jnp.concatenate(outs, 0)
-
-
-def _mask_contract(mask, Z: Array) -> Array:
-    """Masked partner contraction ``(m, T, K)``: dense (m, n, T) mask via
-    the einsum path, :class:`PackedMask` via the int8 kernel."""
-    if isinstance(mask, PackedMask):
-        return _packed_contract_all(mask, Z)
-    return _eta_contract(mask, Z)
-
-
-def make_block_mask_contract(Mr, bs: int):
-    """Closure contracting block b's mask rows against a feature panel
-    (``(bs, T, K)``): int8 kernel stripe when ``Mr`` is a
-    :class:`PackedMask`, dense einsum slice otherwise.  Shared by the
-    CAVI and smoothed block steps."""
-    def contract(b, Z):
-        if isinstance(Mr, PackedMask):
-            from tame.ops.masked_contract import packed_rows_contract
-
-            stripe = jax.lax.dynamic_index_in_dim(Mr.blocks, b, 0,
-                                                  keepdims=False)
-            return packed_rows_contract(
-                stripe, Z,
-                interpret=jax.default_backend() == "cpu")[:bs]
-        Mb = jax.lax.dynamic_index_in_dim(Mr, b, 0, keepdims=False)
-        return _eta_contract(Mb, Z)
-    return contract
+def block_mask_contract(Mr: Array, b, Z: Array) -> Array:
+    """Contract block ``b``'s mask rows ``Mr[b]`` (``(bs, n, T)``) against
+    a feature panel ``Z`` (``(n, T, K)``).  Shared by the CAVI and
+    smoothed block steps."""
+    Mb = jax.lax.dynamic_index_in_dim(Mr, b, 0, keepdims=False)
+    return _eta_contract(Mb, Z)
 
 
 def _masked_panel(U: Array, V: Array) -> Array:
@@ -487,21 +443,19 @@ def _masked_obs_precision(Mr, U: Array, V: Array, R_inv: Array) -> Array:
     j-sums into GLOBAL statistics minus the self term; with missing dyads
     the sums become per-node masked contractions: counts, masked partner
     sums, and masked partner Grams — one concatenated-panel contraction
-    (:func:`_masked_panel`), through the int8 packed kernel when ``Mr``
-    is a :class:`PackedMask`.  No reference counterpart: the reference
+    (:func:`_masked_panel`).  No reference counterpart: the reference
     supports complete networks only.
 
     Parameters
     ----------
-    Mr : (m, n, T) mask rows (1 = observed; diag 0) or a full-mask
-        :class:`PackedMask`.
+    Mr : (m, n, T) mask rows (1 = observed; diag 0).
     U, V : (n, T, r) current variational means.
 
     Returns
     -------
     P_obs : (m, T, d, d)
     """
-    C = _mask_contract(Mr, _masked_panel(U, V))
+    C = _eta_contract(Mr, _masked_panel(U, V))
     return _masked_P_from_C(C, R_inv, U.shape[-1])
 
 
@@ -510,7 +464,7 @@ def _obs_nat_param(obs: ObsConstants, X_mean: Array, r: int,
                    mask: Optional[Array] = None) -> Array:
     """Observation natural parameter for every (i, t): (n, T, d).
 
-    The U/V slots are MXU contractions of the constant dyad weights against
+    The U/V slots are matrix contractions of the constant dyad weights against
     the current means; diagonal terms vanish because Y[i,i] = 0.
 
     ``corrected=False`` reproduces the reference's acknowledged
@@ -538,7 +492,7 @@ def _obs_nat_param(obs: ObsConstants, X_mean: Array, r: int,
             # Missing dyads: offset sums run over observed partners only
             # — one concatenated-panel mask pass (cf.
             # _masked_obs_precision).
-            C = _mask_contract(mask, jnp.concatenate(
+            C = _eta_contract(mask, jnp.concatenate(
                 [c[..., None], dd[..., None], c[..., None] * V,
                  dd[..., None] * U], axis=-1))
             r_ = V.shape[-1]
@@ -806,8 +760,9 @@ def cavi_step_block(state: CaviState, obs: ObsConstants,
     coupling (every node moves against every other's stale mean), forcing
     damping lr = O(1/n) at scale; a handful of sequential blocks restores
     near-Gauss-Seidel stability while keeping (n / num_blocks) * T parallel
-    factor updates per phase — ample TPU batch at production sizes.  Total
-    FLOPs per sweep match Jacobi (each W-row contraction happens once).
+    factor updates per phase — ample device parallelism at production
+    sizes.  Total FLOPs per sweep match Jacobi (each W-row contraction
+    happens once).
     """
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
@@ -825,17 +780,7 @@ def cavi_step_block(state: CaviState, obs: ObsConstants,
     W1r = obs.W1.reshape(num_blocks, bs, n, T)
     eta_ar = obs.eta_a.reshape(num_blocks, bs, T)
     eta_br = obs.eta_b.reshape(num_blocks, bs, T)
-    if mask is None:
-        Mr = None
-    elif isinstance(mask, PackedMask):
-        if mask.blocks.shape[0] != num_blocks:
-            raise ValueError("PackedMask block count must match "
-                             "num_blocks")
-        Mr = mask
-    else:
-        Mr = mask.reshape(num_blocks, bs, n, T)
-
-    block_mask_contract = make_block_mask_contract(Mr, bs)
+    Mr = None if mask is None else mask.reshape(num_blocks, bs, n, T)
 
     def update_block(b, carry):
         X_mean, X_cov = carry
@@ -846,7 +791,7 @@ def cavi_step_block(state: CaviState, obs: ObsConstants,
         Vb = jax.lax.dynamic_slice_in_dim(V, start, bs, 0)
 
         if Mr is not None:
-            C = block_mask_contract(b, _masked_panel(U, V))
+            C = block_mask_contract(Mr, b, _masked_panel(U, V))
             P = _masked_P_from_C(C, params.R_inv, r) + prior_P
         else:
             # Fresh global sufficient statistics (cheap: O(n T r^2)).
@@ -883,7 +828,7 @@ def cavi_step_block(state: CaviState, obs: ObsConstants,
             ddc = q * b_all + p * a_all
             if Mr is not None:
                 # one mask pass (cf. _masked_obs_precision)
-                Cc = block_mask_contract(b, jnp.concatenate(
+                Cc = block_mask_contract(Mr, b, jnp.concatenate(
                     [cc[..., None], ddc[..., None], cc[..., None] * V,
                      ddc[..., None] * U], axis=-1))
                 eta_a_b = eta_a_b - Cc[..., 0]
@@ -1109,12 +1054,6 @@ def warm_init_state(Y: Array, params: AMEParams, *,
 # Full fit (compiled convergence loop)
 # ---------------------------------------------------------------------------
 
-# Observability probe: records whether the most recent fit_cavi call
-# dispatched to the Pallas megakernel (set outside jit; tests and the
-# bench read it to assert the default path hits the kernel on TPU).
-LAST_FIT_USED_FUSED = False
-
-
 class FitResult(NamedTuple):
     X_mean: Array        # (n, T, d)
     X_cov: Array         # (n, T, d, d)
@@ -1136,7 +1075,7 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
              patience: int = 3, num_blocks=None,
              corrected: bool = False, elbo_every: int = 1,
              mixed_precision: bool = False,
-             diag_mode: str = "exact", fused: bool | str = "auto",
+             diag_mode: str = "exact",
              carry_elbo=None, carry_patience=0,
              mask: Optional[Array] = None) -> FitResult:
     """Run damped CAVI to convergence inside a single compiled loop.
@@ -1182,21 +1121,6 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
     optimum's MSE at the noise floor (tests).  Not supported with
     ``update_mode='seq'`` (a parity mode).
 
-    ``fused`` selects the whole-fit Pallas megakernel
-    (:mod:`tame.ops.fused_fit`): the entire loop — update, exact
-    diagnostics, convergence bookkeeping — runs inside ONE kernel with the
-    state resident in VMEM, eliminating per-iteration dispatch (the
-    dominant cost at demo-scale configs).  ``"auto"`` (default) uses it on
-    TPU whenever the configuration is supported (any covariance structure,
-    jacobi or block updates, exact per-iteration diagnostics, VMEM-sized
-    problem, single-device input — so the default engine configuration
-    hits the kernel); ``True`` forces it
-    (interpreted on CPU — slow, for testing); ``False`` disables.  Results
-    match the unfused path to float32 reduction error; the only scheduling
-    difference is that the kernel always runs ``max_iter`` internal
-    iterations, freezing state/histories after convergence instead of
-    exiting early.  ``TAME_DISABLE_FUSED_FIT=1`` disables globally.
-
     ``mask`` enables missing-data fits: an (n, n, T) dyad observation
     mask (1 = observed, 0 = missing; symmetric with zero diagonal — both
     directions of a dyad live in one ``Y[i, j, t]`` entry and are observed
@@ -1209,8 +1133,7 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
     (:func:`_masked_residual_stats` — one extra mask contraction instead
     of an O(n^2 T) residual pass) and ``mixed_precision`` stores mask and
     dyad weights in bfloat16, so masked fits keep the full production fast
-    path.  Only the megakernel is bypassed (it assembles complete-network
-    statistics).  No reference counterpart (complete networks only,
+    path.  No reference counterpart (complete networks only,
     ``naive_mf.py:324-374``); build masks with
     :func:`tame.models.random_dyad_mask` or from data.
 
@@ -1225,7 +1148,7 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
     ``"exact"`` evaluates the dyadic residuals directly (one O(n^2 T)
     elementwise pass over the forward means); ``"stats"`` expands them into
     global sufficient statistics (:func:`_residual_stats_from_moments`) —
-    two eta-class MXU contractions and O(n T r^2) moments, no
+    two eta-class contractions and O(n T r^2) moments, no
     observation-sized reads — making dense per-iteration diagnostics
     nearly free at production scale.  The two agree to float32 reduction
     error (relative ~1e-6 at n=2000; tests assert 1e-4).
@@ -1239,7 +1162,6 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
         if update_mode not in ("jacobi", "block"):
             raise ValueError(
                 "mask is supported with update_mode 'jacobi' or 'block'")
-        fused = False  # the megakernel assembles complete-network stats
         # Zero the diagonal defensively; symmetry is the caller's contract
         # (each unordered dyad carries both directions in Y[i, j]).
         mask = jnp.asarray(mask, Y.dtype)
@@ -1255,76 +1177,12 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
     buf = 64
     while buf < max_iter:
         buf *= 2
-    n_, _, T_, _ = Y.shape
-    d_ = init.X_mean.shape[-1]
+    n_ = Y.shape[0]
     if update_mode == "block" and num_blocks is None:
         # Largest divisor of n that is <= 16: near-GS stability with
         # maximal per-phase parallelism.
         num_blocks = next(k for k in range(min(16, n_), 0, -1)
                           if n_ % k == 0)
-    global LAST_FIT_USED_FUSED
-    LAST_FIT_USED_FUSED = False
-    if fused not in (False, None):
-        supported = fused_fit.fused_fit_supported(
-            n_, T_, d_, structure=structure, update_mode=update_mode,
-            diag_mode=diag_mode, mixed_precision=mixed_precision,
-            elbo_every=elbo_every, num_blocks=num_blocks)
-        disabled = bool(os.environ.get("TAME_DISABLE_FUSED_FIT"))
-        on_cpu = jax.default_backend() == "cpu"
-        # A single pallas_call is not GSPMD-partitioned: inputs sharded
-        # across devices must take the XLA path (collectives).  Tracers
-        # (fit_cavi under an outer jit) carry no sharding to inspect, so
-        # "auto" declines them — a caller jitting over sharded inputs must
-        # not silently get a non-partitionable kernel.  Single-device
-        # callers under an outer jit opt in with fused=True (bench.py).
-        is_tracer = isinstance(Y, jax.core.Tracer)
-        try:
-            multi_device = len(Y.sharding.device_set) > 1
-        except Exception:
-            multi_device = is_tracer
-        if fused is True:
-            if not supported:
-                raise ValueError(
-                    "fused=True requires update_mode 'jacobi' or 'block', "
-                    "diag_mode='exact', mixed_precision=False, "
-                    "elbo_every=1 and a VMEM-sized problem")
-            use_fused = not disabled
-        else:  # "auto"
-            use_fused = (supported and not disabled and not on_cpu
-                         and not multi_device)
-        if use_fused:
-            LAST_FIT_USED_FUSED = True
-            out = fused_fit.fused_fit(
-                Y, params.R_inv, params.Sigma0, params.Q, params.Phi,
-                init.X_mean, init.X_cov,
-                jnp.asarray(max_iter), jnp.asarray(learning_rate, Y.dtype),
-                jnp.asarray(tolerance, Y.dtype),
-                jnp.asarray(-jnp.inf if carry_elbo is None else carry_elbo,
-                            jnp.float32),
-                jnp.asarray(carry_patience, jnp.int32),
-                r=(d_ - 2) // 2, buf_size=buf, patience=patience,
-                corrected=corrected, structure=structure,
-                num_blocks=(num_blocks if update_mode == "block" else 1),
-                interpret=on_cpu)
-            return FitResult(X_mean=out.X_mean, X_cov=out.X_cov,
-                             elbo_history=out.elbo_history,
-                             mse_history=out.mse_history,
-                             n_iter=out.n_iter, converged=out.converged,
-                             diverged=out.diverged,
-                             last_elbo=out.last_elbo,
-                             pat_count=out.pat_count)
-    # Int8 packed-mask contractions (tame.ops.masked_contract):
-    # OPT-IN via TAME_PACKED_MASK=1 only — measured slower than the
-    # consolidated bf16 einsum path (see the module's negative-result
-    # note).
-    packed_mask = False
-    if mask is not None:
-        env = os.environ.get("TAME_PACKED_MASK")
-        # Opt-in only: measured SLOWER than the bf16 einsum path at
-        # n=2000 (40 vs 13 ms/iter — per-call panel re-padding and
-        # layout transposes outweigh the int8 byte saving; see
-        # tame/ops/masked_contract.py notes).
-        packed_mask = env == "1"
     return _fit_cavi_impl(Y, params, init, jnp.asarray(max_iter),
                           jnp.asarray(learning_rate, Y.dtype),
                           jnp.asarray(tolerance, Y.dtype),
@@ -1336,8 +1194,7 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
                           num_blocks=num_blocks, corrected=corrected,
                           elbo_every=elbo_every,
                           mixed_precision=mixed_precision,
-                          diag_mode=diag_mode, packed_mask=packed_mask,
-                          mask=mask)
+                          diag_mode=diag_mode, mask=mask)
 
 
 @functools.partial(jax.jit, static_argnames=("structure", "update_mode",
@@ -1345,15 +1202,14 @@ def fit_cavi(Y: Array, params: AMEParams, init: CaviState, *,
                                              "num_blocks", "corrected",
                                              "elbo_every",
                                              "mixed_precision",
-                                             "diag_mode",
-                                             "packed_mask"))
+                                             "diag_mode"))
 def _fit_cavi_impl(Y: Array, params: AMEParams, init: CaviState,
                    max_iter: Array, learning_rate: Array, tolerance: Array,
                    carry_elbo: Array, carry_patience: Array,
                    *, structure: str, update_mode: str, buf_size: int,
                    patience: int, num_blocks, corrected: bool,
                    elbo_every: int, mixed_precision: bool,
-                   diag_mode: str, packed_mask: bool = False,
+                   diag_mode: str,
                    mask: Optional[Array] = None) -> FitResult:
     n, _, T, _ = Y.shape
     d = init.X_mean.shape[-1]
@@ -1368,14 +1224,7 @@ def _fit_cavi_impl(Y: Array, params: AMEParams, init: CaviState,
     mask_c = mask
     if mask is not None:
         Y = jnp.where(mask[..., None] > 0, Y, 0.0)
-        if packed_mask:
-            # int8 packed layout: 1 byte/entry mask passes through the
-            # Pallas kernel (tame.ops.masked_contract).
-            from tame.ops.masked_contract import pack_mask
-
-            nb = num_blocks if update_mode == "block" else 1
-            mask_c = PackedMask(blocks=pack_mask(mask, nb))
-        elif mixed_precision:
+        if mixed_precision:
             # 0/1 entries are exact in bf16; the masked partner
             # contractions then ride the same single-pass bf16 path as
             # the dyad-weight contractions (half the mask HBM traffic).

@@ -1,7 +1,7 @@
 """Hamiltonian Monte Carlo for the temporal AME posterior.
 
-TPU-native design (no counterpart in the reference; mandated by the north
-star): the leapfrog integrator runs on the full latent tensor (n, T, d) with
+Design (no counterpart in the reference; mandated by the north star):
+the leapfrog integrator runs on the full latent tensor (n, T, d) with
 batched gradient evaluations (each gradient is the O(n^2 T) einsum stack of
 ``tame.inference.logprob``); chains are ``vmap``-ed and shard over the
 ``batch`` mesh axis.
@@ -139,8 +139,8 @@ def run_hmc(logdensity_fn: Callable, init_position: Array, key: Array, *,
     ``logdensity_args``: extra DATA operands forwarded to
     ``logdensity_fn(x, *logdensity_args)``.  Pass the observation tensor
     (and mask) here rather than closing over them — closed-over arrays
-    are baked into the compiled program as constants, which the TPU
-    transport rejects above ~100 MB (CLAUDE.md).
+    are baked into the compiled program as constants, which bloats the
+    executable and its compile time.
     """
     if logdensity_args:
         base_fn = logdensity_fn

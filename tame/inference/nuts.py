@@ -1,11 +1,11 @@
 """No-U-Turn Sampler (iterative, non-recursive) for the temporal AME
 posterior.
 
-A TPU-native NUTS: the recursive doubling of Hoffman & Gelman (2014) is
-replaced by the iterative checkpoint-stack scheme (cf. Phan & Pradhan,
-"Iterative NUTS"), so the whole sampler is ``lax.while_loop``s with static
-shapes — no Python recursion, no dynamic tree allocation, jit/vmap-able
-over chains.
+A NUTS built for compiled accelerator code: the recursive doubling of
+Hoffman & Gelman (2014) is replaced by the iterative checkpoint-stack
+scheme (cf. Phan & Pradhan, "Iterative NUTS"), so the whole sampler is
+``lax.while_loop``s with static shapes — no Python recursion, no dynamic
+tree allocation, jit/vmap-able over chains.
 
 U-turn bookkeeping inside a 2^depth subtree (1-indexed leapfrog steps k):
 

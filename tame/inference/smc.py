@@ -1,8 +1,8 @@
 """Sequential Monte Carlo (tempered-likelihood) for the temporal AME
 posterior.
 
-TPU-native design (no counterpart in the reference; mandated by the north
-star): N particles over the full latent tensor (n, T, d) move through a
+Design (no counterpart in the reference; mandated by the north star):
+N particles over the full latent tensor (n, T, d) move through a
 geometric likelihood-tempering schedule ``beta: 0 -> 1``.  Every stage is
 batched over particles (vmap); particles shard over the ``batch`` mesh axis,
 where resampling becomes an all-gather of particle weights plus a gathered
@@ -111,8 +111,7 @@ def run_smc(params: AMEParams, Y: Array, key: Array, *,
     stages THIS call may add — the population, weights, evidence
     accumulator, temperature and histories all carry over on device.
     Use for checkpointed long runs, or to keep individual device
-    dispatches short (this host's TPU worker kills single dispatches
-    beyond ~1 minute; ``scripts/smc_bench.py``).  Each call draws fresh
+    dispatches short.  Each call draws fresh
     move randomness from ``key``, so a segmented run equals an
     unsegmented one in distribution, not bitwise — pass a distinct
     ``key`` per segment.

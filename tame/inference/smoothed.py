@@ -26,7 +26,6 @@ covariances are refreshed from each solve.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
@@ -37,7 +36,6 @@ from tame.inference import cavi
 from tame.models.params import AMEParams
 from tame.ops import dyad as dyad_ops
 from tame.ops.dyad import HIGHEST
-from tame.ops.fused_smoother import fused_smoother, fused_smoother_supported
 from tame.ops.tridiag import block_tridiag_smoother
 
 _LOG2PI = 1.8378770664093453
@@ -98,17 +96,12 @@ def warm_init_smoothed_state(Y: Array, params: AMEParams,
 def smoothed_step(state: SmoothedState, obs: cavi.ObsConstants,
                   pri: cavi.PriorMatrices, params: AMEParams, lr: Array,
                   corrected: bool = True,
-                  fused: bool = False,
                   parallel: bool = False,
                   mask: Array | None = None) -> SmoothedState:
     """One simultaneous update: every node's trajectory re-solved exactly
     against the other nodes' current means.
 
-    ``fused=True`` runs the forward-backward smooth in the Pallas kernel
-    (:func:`tame.ops.fused_smoother.fused_smoother`) instead of the
-    ``vmap``-ed ``lax.scan`` solver — one kernel for the whole batched
-    solve, the north star's "AR(1) forward-backward smoothing as a fused
-    kernel" item.  ``parallel=True`` uses the time-parallel associative-
+    ``parallel=True`` uses the time-parallel associative-
     scan smoother (:func:`tame.ops.ptridiag.parallel_block_tridiag_
     smoother`, O(log T) depth) — the long-context lever when T is large.
     """
@@ -131,13 +124,8 @@ def smoothed_step(state: SmoothedState, obs: cavi.ObsConstants,
     else:
         D = D_obs + cavi._prior_precision(pri, T)[None]  # (n, T, d, d)
         O = -pri.Qinv_Phi.T                              # -Phi' Q^-1
-        if fused:
-            # interpret mode lets CPU tests exercise the kernel
-            out = fused_smoother(D, O, b,
-                                 interpret=jax.default_backend() == "cpu")
-        else:
-            out = jax.vmap(
-                lambda Di, bi: block_tridiag_smoother(Di, O, bi))(D, b)
+        out = jax.vmap(
+            lambda Di, bi: block_tridiag_smoother(Di, O, bi))(D, b)
     X_mean = lr * out.mean + (1.0 - lr) * state.X_mean
     return SmoothedState(X_mean=X_mean.astype(state.X_mean.dtype),
                          X_cov=out.cov, X_cross=out.cross_cov,
@@ -148,7 +136,6 @@ def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
                         pri: cavi.PriorMatrices, params: AMEParams,
                         lr: Array, num_blocks: int,
                         corrected: bool = True,
-                        fused: bool = False,
                         parallel: bool = False,
                         mask=None) -> SmoothedState:
     """Block Gauss-Seidel smoothed update: node blocks re-solved in
@@ -180,17 +167,7 @@ def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
     W1r = obs.W1.reshape(num_blocks, bs, n, T)
     eta_ar = obs.eta_a.reshape(num_blocks, bs, T)
     eta_br = obs.eta_b.reshape(num_blocks, bs, T)
-    if mask is None:
-        Mr = None
-    elif isinstance(mask, cavi.PackedMask):
-        if mask.blocks.shape[0] != num_blocks:
-            raise ValueError("PackedMask block count must match "
-                             "num_blocks")
-        Mr = mask
-    else:
-        Mr = mask.reshape(num_blocks, bs, n, T)
-
-    block_mask_contract = cavi.make_block_mask_contract(Mr, bs)
+    Mr = None if mask is None else mask.reshape(num_blocks, bs, n, T)
 
     def update_block(b, carry):
         X_mean, X_cov, X_cross, logdets = carry
@@ -200,7 +177,7 @@ def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
         Vb = jax.lax.dynamic_slice_in_dim(V, start, bs, 0)
 
         if Mr is not None:
-            C = block_mask_contract(b, cavi._masked_panel(U, V))
+            C = cavi.block_mask_contract(Mr, b, cavi._masked_panel(U, V))
             D_obs = cavi._masked_P_from_C(C, params.R_inv, r)
         else:
             # Fresh global sufficient statistics (cheap: O(n T r^2)).
@@ -233,7 +210,7 @@ def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
             cc = p * b_all + q * a_all
             ddc = q * b_all + p * a_all
             if Mr is not None:
-                Cc = block_mask_contract(b, jnp.concatenate(
+                Cc = cavi.block_mask_contract(Mr, b, jnp.concatenate(
                     [cc[..., None], ddc[..., None], cc[..., None] * V,
                      ddc[..., None] * U], axis=-1))
                 eta_a_b = eta_a_b - Cc[..., 0]
@@ -263,14 +240,8 @@ def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
                 Ji, bi, params.Phi, params.Q, params.Sigma0))(D_obs, bvec)
         else:
             D = D_obs + prior_D[None]
-            if fused:
-                out = fused_smoother(
-                    D, O, bvec,
-                    interpret=jax.default_backend() == "cpu")
-            else:
-                out = jax.vmap(
-                    lambda Di, bi: block_tridiag_smoother(Di, O, bi))(
-                    D, bvec)
+            out = jax.vmap(
+                lambda Di, bi: block_tridiag_smoother(Di, O, bi))(D, bvec)
 
         mu_old = jax.lax.dynamic_slice_in_dim(X_mean, start, bs, 0)
         X_mean = jax.lax.dynamic_update_slice_in_dim(
@@ -394,29 +365,18 @@ def fit_cavi_smoothed(Y: Array, params: AMEParams, init: SmoothedState, *,
                       max_iter: int = 100, learning_rate=0.8,
                       tolerance=1e-4, patience: int = 3,
                       corrected: bool = True,
-                      fused="auto",
                       smoother: str = "auto",
                       update_mode: str = "auto", num_blocks=None,
                       mixed_precision: bool = False,
                       diag_mode: str = "exact",
                       carry_elbo=None, carry_patience=0,
                       mask: Array | None = None) -> SmoothedFitResult:
-    """``fused``: True forces the Pallas forward-backward kernel, False the
-    ``vmap``-ed scan solver, "auto" (default) picks the kernel on TPU when
-    the shape is supported (``TAME_DISABLE_FUSED_FIT=1`` disables).
-
-    ``smoother`` selects the trajectory solver when the Pallas kernel is
-    not in play: ``"sequential"`` is the O(T)-depth scan
-    (``tame.ops.tridiag``), ``"parallel"`` the O(log T)-depth
-    associative-scan smoother (``tame.ops.ptridiag``, Särkkä &
-    García-Fernández 2021) — exact to float32 tolerance.  ``"auto"``
-    resolves to sequential: measured on TPU (scripts/ptridiag_bench.py,
-    2026-08-21), the vmapped scan stays throughput-bound — ~190 ms for
-    65k node-steps regardless of the (n, T) split up to T = 1024 —
-    while the parallel variant's combine constants (batched solves +
-    layout churn at d ~ 10) cost 6-11x; it never crosses over at
-    practical shapes.  ``"parallel"`` remains available for
-    latency-bound regimes (tiny n, very long T, CPU).
+    """``smoother`` selects the trajectory solver: ``"sequential"`` is
+    the O(T)-depth scan (``tame.ops.tridiag``), ``"parallel"`` the
+    O(log T)-depth associative-scan smoother (``tame.ops.ptridiag``,
+    Särkkä & García-Fernández 2021) — exact to float32 tolerance.
+    ``"auto"`` resolves to sequential; ``"parallel"`` remains available
+    for latency-bound regimes (tiny n, very long T).
 
     ``mixed_precision``/``diag_mode`` select the same production fast
     path as ``cavi.fit_cavi``: bf16 dyad-weight (and mask) storage with
@@ -448,55 +408,18 @@ def fit_cavi_smoothed(Y: Array, params: AMEParams, init: SmoothedState, *,
     buf = 64
     while buf < max_iter:
         buf *= 2
-    n, _, T, _ = Y.shape
-    d = init.X_mean.shape[-1]
+    n = Y.shape[0]
     if mask is not None:
-        # The fused smoother itself is mask-agnostic (it solves whatever
-        # D/b it is given), but keep the selection conservative and take
-        # the XLA path under a mask (exactness over peak speed).
-        fused = False
         mask = jnp.asarray(mask, Y.dtype)
         mask = mask * (1.0 - jnp.eye(n, dtype=Y.dtype)[:, :, None])
-    fused_explicit = fused is True
-    if fused == "auto":
-        # pallas_call is not GSPMD-partitioned: node-sharded inputs
-        # (tame.parallel.shard_smoothed_inputs) take the XLA vmap path.
-        try:
-            multi_device = len(Y.sharding.device_set) > 1
-        except Exception:
-            multi_device = False
-        fused = (fused_smoother_supported(n, T, d)
-                 and not os.environ.get("TAME_DISABLE_FUSED_FIT")
-                 and jax.default_backend() != "cpu"
-                 and not multi_device)
-    elif fused and not fused_smoother_supported(n, T, d):
-        raise ValueError(f"fused smoother unsupported for n={n}, T={T}, "
-                         f"d={d} (needs T >= 2, d <= 12, VMEM-sized tile)")
     if smoother == "auto":
-        smoother = "sequential"  # measured: see docstring
-    if smoother == "parallel":
-        if fused_explicit:
-            # A user FORCING the Pallas kernel must not silently get the
-            # parallel scan instead; only the "auto" default yields.
-            raise ValueError("fused=True and smoother='parallel' are "
-                             "mutually exclusive solver choices; drop "
-                             "one (fused='auto' resolves to the scan "
-                             "path under the parallel smoother)")
-        fused = False
+        smoother = "sequential"
     if update_mode == "auto":
         update_mode = "block" if n >= 256 else "jacobi"
     if update_mode == "block" and num_blocks is None:
         # Largest divisor of n that is <= 16 (cf. cavi.fit_cavi).
         num_blocks = next(k for k in range(min(16, n), 0, -1)
                           if n % k == 0)
-    packed_mask = False
-    if mask is not None:
-        env = os.environ.get("TAME_PACKED_MASK")
-        # Opt-in only: measured SLOWER than the bf16 einsum path at
-        # n=2000 (40 vs 13 ms/iter — per-call panel re-padding and
-        # layout transposes outweigh the int8 byte saving; see
-        # tame/ops/masked_contract.py notes).
-        packed_mask = env == "1"
     return _fit_smoothed_impl(Y, params, init, jnp.asarray(max_iter),
                               jnp.asarray(learning_rate, Y.dtype),
                               jnp.asarray(tolerance, Y.dtype),
@@ -504,33 +427,29 @@ def fit_cavi_smoothed(Y: Array, params: AMEParams, init: SmoothedState, *,
                                           else carry_elbo, Y.dtype),
                               jnp.asarray(carry_patience),
                               buf_size=buf, patience=patience,
-                              corrected=corrected, fused=bool(fused),
+                              corrected=corrected,
                               parallel=(smoother == "parallel"),
                               update_mode=update_mode,
                               num_blocks=num_blocks,
                               mixed_precision=mixed_precision,
                               diag_mode=diag_mode,
-                              packed_mask=packed_mask,
                               mask=mask)
 
 
 @functools.partial(jax.jit, static_argnames=("buf_size", "patience",
-                                             "corrected", "fused",
-                                             "parallel",
+                                             "corrected", "parallel",
                                              "mixed_precision",
-                                             "diag_mode", "packed_mask",
+                                             "diag_mode",
                                              "update_mode", "num_blocks"))
 def _fit_smoothed_impl(Y, params, init, max_iter, lr, tol,
                        carry_elbo, carry_patience, *,
                        buf_size: int, patience: int,
                        corrected: bool,
-                       fused: bool = False,
                        parallel: bool = False,
                        update_mode: str = "jacobi",
                        num_blocks=None,
                        mixed_precision: bool = False,
                        diag_mode: str = "exact",
-                       packed_mask: bool = False,
                        mask=None) -> SmoothedFitResult:
     n, _, T, _ = Y.shape
     d = init.X_mean.shape[-1]
@@ -540,12 +459,7 @@ def _fit_smoothed_impl(Y, params, init, max_iter, lr, tol,
     mask_c = mask
     if mask is not None:
         Y = jnp.where(mask[..., None] > 0, Y, 0.0)
-        if packed_mask:
-            from tame.ops.masked_contract import pack_mask
-
-            nb = num_blocks if update_mode == "block" else 1
-            mask_c = cavi.PackedMask(blocks=pack_mask(mask, nb))
-        elif mixed_precision:
+        if mixed_precision:
             mask_c = mask.astype(jnp.bfloat16)
     obs = cavi.precompute_obs_constants(
         Y, params.R_inv,
@@ -600,12 +514,10 @@ def _fit_smoothed_impl(Y, params, init, max_iter, lr, tol,
         if update_mode == "block":
             state = smoothed_step_block(state, obs, pri, params, lr,
                                         num_blocks, corrected,
-                                        fused=fused, parallel=parallel,
-                                        mask=mask_c)
+                                        parallel=parallel, mask=mask_c)
         else:
             state = smoothed_step(state, obs, pri, params, lr, corrected,
-                                  fused=fused, parallel=parallel,
-                                  mask=mask_c)
+                                  parallel=parallel, mask=mask_c)
         elbo, mse = diagnostics(state)
         eh = eh.at[it].set(elbo)
         mh = mh.at[it].set(mse)

@@ -9,7 +9,7 @@ previous one, so the checkpoint directory is never written concurrently
 and the atomic-rename contract of :func:`tame.io.save_checkpoint` holds.
 
 The reference has no training checkpointing at all (SURVEY.md §5); this
-subsystem is TPU-native surface in support of multi-hour production fits.
+subsystem is new surface in support of multi-hour production fits.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""AME generative models (static and temporal), TPU-native."""
+"""AME generative models (static and temporal), batched JAX."""
 
 from tame.models.base import BaseAMEModel
 from tame.models.likelihoods import (

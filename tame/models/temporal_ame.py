@@ -5,7 +5,7 @@ The generative process (reference ``src/models/temporal_ame.py:147-220``):
     X_i^0 ~ N(0, Sigma0),  X_i^t = Phi X_i^{t-1} + eps_t,  eps_t ~ N(0, Q)
     Y_ij^t = mu_ij^t + e,  e ~ N(0, R),  sampled once per unordered dyad.
 
-TPU-native design: the AR(1) chain is one ``lax.scan`` over T vectorized over
+Design: the AR(1) chain is one ``lax.scan`` over T vectorized over
 all nodes; dyad noise is a single batched sample pushed through the Cholesky
 factor of R and mirrored with :func:`tame.ops.dyad.symmetrize_dyads` — no
 Python loops anywhere (contrast the reference's n*T and T*n^2/2 loops at
@@ -114,7 +114,7 @@ def random_dyad_mask(key: Array, n: int, T: int,
 # ---------------------------------------------------------------------------
 
 class TemporalAMEModel(BaseAMEModel):
-    """Temporal AME model with AR(1) dynamics (TPU-native).
+    """Temporal AME model with AR(1) dynamics (batched JAX).
 
     Mirrors the reference class surface (``temporal_ame.py:25-362``): same
     constructor keywords, ``generate_data``, ``compute_mean``,

@@ -1,152 +1,94 @@
-"""Batched small-SPD solve + inverse: the CAVI coordinate-update hot op.
+"""Batched small-SPD solve, inverse and log-determinant: the CAVI
+coordinate-update hot op.
 
 Every CAVI iteration solves n*T independent d x d SPD systems (d = 2 + 2r,
 typically 4-10): ``cov = P^-1`` and ``mu = P^-1 eta`` (reference
 ``naive_mf.py:266-274``, ``structured_mf.py:266-279`` do this one tiny
-torch solve at a time).  XLA lowers ``jnp.linalg.inv`` on such shapes to a
-batched LU with poor MXU/VPU utilization; the Pallas kernel here instead
-lays the *batch* on the TPU lane axis — arrays of shape (d*d, B) — and
-unrolls the Cholesky factorization, triangular solves and inverse over the
-static ``d``, so every scalar step of the algorithm is one VPU op across
-128 lanes.  O(d^3) ~ a few hundred elementwise ops per 128-batch tile.
+torch solve at a time).
 
-``batched_spd_solve_inv`` auto-selects: Pallas on TPU, pure-XLA Cholesky
-everywhere else (and under ``TAME_FORCE_XLA_SOLVE=1``).
+The Cholesky factorization, the triangular solves and the inverse are
+unrolled over the static ``d`` in plain ``jax.numpy``: every scalar step
+of the algorithm is one elementwise operation across the whole batch,
+which sits on the trailing axis.  XLA fuses the unrolled code into
+elementwise loops that read each system once, instead of dispatching a
+batched library factorization plus two triangular solves for 10 x 10
+matrices.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-from typing import Tuple
+from typing import List, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
 from jax import Array
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANES = 128
 
 
-def _chol_solve_inv_kernel(P_ref, eta_ref, mu_ref, cov_ref=None, *,
-                           d: int):
-    """One tile: P (d*d, B), eta (d, B) -> mu (d, B), cov (d*d, B).
+def _sub_products(acc, terms):
+    """``acc - sum(a * b)`` over ``terms``, skipping exact zeros (``None``
+    factors); ``acc=None`` is an exact zero too."""
+    for a, b in terms:
+        if b is None:
+            continue
+        acc = -(a * b) if acc is None else acc - a * b
+    return acc
 
-    Fully unrolled over the static ``d``; every line below is an
-    elementwise VPU op across the B lanes.
+
+def unrolled_cholesky(P, d: int):
+    """Cholesky ``P = L L'`` of SPD matrices given entry by entry.
+
+    ``P[i][j]`` are equally shaped arrays, one matrix per element.
+    Returns ``(L, inv_diag, logdet)``: the lower factor ``L[i][k]``
+    (``k <= i``), ``1 / L[k][k]`` and ``log det P``.
     """
-    P = [[P_ref[i * d + j, :] for j in range(d)] for i in range(d)]
-    eta = [eta_ref[i, :] for i in range(d)]
-
-    # Cholesky: P = L L^T (lower L).
     L = [[None] * d for _ in range(d)]
     inv_diag = [None] * d
+    logdet = None
     for k in range(d):
-        acc = P[k][k]
-        for m in range(k):
-            acc = acc - L[k][m] * L[k][m]
+        acc = _sub_products(P[k][k], [(L[k][m], L[k][m]) for m in range(k)])
+        term = jnp.log(acc)                       # log(L_kk^2)
+        logdet = term if logdet is None else logdet + term
         L[k][k] = jnp.sqrt(acc)
         inv_diag[k] = 1.0 / L[k][k]
         for i in range(k + 1, d):
-            acc = P[i][k]
-            for m in range(k):
-                acc = acc - L[i][m] * L[k][m]
+            acc = _sub_products(P[i][k],
+                                [(L[i][m], L[k][m]) for m in range(k)])
             L[i][k] = acc * inv_diag[k]
+    return L, inv_diag, logdet
 
-    def solve(rhs):
-        """L L^T x = rhs via forward + backward substitution."""
-        y = [None] * d
-        for i in range(d):
-            acc = rhs[i]
-            for m in range(i):
-                acc = acc - L[i][m] * y[m]
-            y[i] = acc * inv_diag[i]
-        x = [None] * d
-        for i in reversed(range(d)):
-            acc = y[i]
-            for m in range(i + 1, d):
-                acc = acc - L[m][i] * x[m]
-            x[i] = acc * inv_diag[i]
-        return x
 
-    mu = solve(eta)
+def unrolled_solve(L, inv_diag, rhs: List[Optional[Array]], d: int):
+    """``L L' x = rhs`` by forward and backward substitution; ``None``
+    entries of ``rhs`` are exact zeros (the unit vectors of the
+    inverse)."""
+    y = [None] * d
     for i in range(d):
-        mu_ref[i, :] = mu[i]
-
-    if cov_ref is not None:
-        # Inverse column by column (RHS = e_j).
-        zeros = jnp.zeros_like(eta[0])
-        ones = jnp.ones_like(eta[0])
-        for j in range(d):
-            rhs = [ones if i == j else zeros for i in range(d)]
-            col = solve(rhs)
-            for i in range(d):
-                cov_ref[i * d + j, :] = col[i]
+        acc = _sub_products(rhs[i], [(L[i][m], y[m]) for m in range(i)])
+        y[i] = None if acc is None else acc * inv_diag[i]
+    x = [None] * d
+    for i in reversed(range(d)):
+        acc = _sub_products(y[i],
+                            [(L[m][i], x[m]) for m in range(i + 1, d)])
+        x[i] = acc * inv_diag[i]
+    return x
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "with_inverse"))
-def _pallas_spd_solve_inv(P: Array, eta: Array, interpret: bool = False,
-                          with_inverse: bool = True):
-    """P: (B, d, d), eta: (B, d) -> (mu (B, d)[, cov (B, d, d)])."""
-    B, d, _ = P.shape
-    Bp = ((B + LANES - 1) // LANES) * LANES
-    # Lane-major layout: (d*d, B) / (d, B), padded with identity systems.
-    P2 = jnp.transpose(P.reshape(B, d * d), (1, 0))
-    eta2 = jnp.transpose(eta, (1, 0))
-    if Bp != B:
-        eye = jnp.eye(d, dtype=P.dtype).reshape(d * d, 1)
-        P2 = jnp.concatenate(
-            [P2, jnp.broadcast_to(eye, (d * d, Bp - B))], axis=1)
-        eta2 = jnp.concatenate(
-            [eta2, jnp.zeros((d, Bp - B), P.dtype)], axis=1)
-
-    grid = (Bp // LANES,)
-    out_specs = [pl.BlockSpec((d, LANES), lambda b: (0, b),
-                              memory_space=pltpu.VMEM)]
-    out_shape = [jax.ShapeDtypeStruct((d, Bp), P.dtype)]
-    if with_inverse:
-        out_specs.append(pl.BlockSpec((d * d, LANES), lambda b: (0, b),
-                                      memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((d * d, Bp), P.dtype))
-
-    outs = pl.pallas_call(
-        functools.partial(_chol_solve_inv_kernel, d=d),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((d * d, LANES), lambda b: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, LANES), lambda b: (0, b),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(P2, eta2)
-
-    mu = jnp.transpose(outs[0], (1, 0))[:B]
-    if not with_inverse:
-        return mu
-    cov = jnp.transpose(outs[1], (1, 0))[:B].reshape(B, d, d)
-    return mu, cov
+def unrolled_inverse(L, inv_diag, d: int):
+    """``P^-1`` entry by entry (``inv[i][j]``), one solve per unit
+    column."""
+    inv = [[None] * d for _ in range(d)]
+    for j in range(d):
+        col = unrolled_solve(L, inv_diag,
+                             [1.0 if i == j else None for i in range(d)], d)
+        for i in range(d):
+            inv[i][j] = col[i]
+    return inv
 
 
-def _xla_spd_solve_inv(P: Array, eta: Array) -> Tuple[Array, Array]:
-    """Reference path: batched Cholesky factor-solve in stock XLA."""
-    chol = jnp.linalg.cholesky(P)
-    eye = jnp.broadcast_to(jnp.eye(P.shape[-1], dtype=P.dtype), P.shape)
-    cov = jax.scipy.linalg.cho_solve((chol, True), eye)
-    mu = jax.scipy.linalg.cho_solve((chol, True), eta[..., None])[..., 0]
-    return mu, cov
-
-
-def _use_pallas() -> bool:
-    if os.environ.get("TAME_FORCE_XLA_SOLVE"):
-        return False
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # noqa: BLE001
-        return False
+def _entries(P: Array, d: int):
+    """(..., d, d) -> nested list of (B,) arrays, batch on the trailing
+    axis of a (d, d, B) view."""
+    Pt = jnp.moveaxis(P.reshape(-1, d, d), 0, -1)
+    return [[Pt[i, j] for j in range(d)] for i in range(d)]
 
 
 def batched_spd_solve_inv(P: Array, eta: Array) -> Tuple[Array, Array]:
@@ -157,12 +99,12 @@ def batched_spd_solve_inv(P: Array, eta: Array) -> Tuple[Array, Array]:
     """
     batch_shape = P.shape[:-2]
     d = P.shape[-1]
-    Pb = P.reshape(-1, d, d)
-    eb = eta.reshape(-1, d)
-    if _use_pallas():
-        mu, cov = _pallas_spd_solve_inv(Pb, eb, with_inverse=True)
-    else:
-        mu, cov = _xla_spd_solve_inv(Pb, eb)
+    L, inv_diag, _ = unrolled_cholesky(_entries(P, d), d)
+    et = jnp.moveaxis(eta.reshape(-1, d), 0, -1)
+    mu = unrolled_solve(L, inv_diag, [et[i] for i in range(d)], d)
+    inv = unrolled_inverse(L, inv_diag, d)
+    mu = jnp.stack(mu, axis=-1)
+    cov = jnp.stack([jnp.stack(row, axis=-1) for row in inv], axis=-2)
     return mu.reshape(*batch_shape, d), cov.reshape(*batch_shape, d, d)
 
 
@@ -171,74 +113,16 @@ def batched_spd_solve(P: Array, eta: Array) -> Array:
     from ``1/diag(P)``, reference ``naive_mf.py:266-274``)."""
     batch_shape = P.shape[:-2]
     d = P.shape[-1]
-    Pb = P.reshape(-1, d, d)
-    eb = eta.reshape(-1, d)
-    if _use_pallas():
-        mu = _pallas_spd_solve_inv(Pb, eb, with_inverse=False)
-    else:
-        chol = jnp.linalg.cholesky(Pb)
-        mu = jax.scipy.linalg.cho_solve((chol, True), eb[..., None])[..., 0]
-    return mu.reshape(*batch_shape, d)
-
-
-def _logdet_kernel(P_ref, out_ref, *, d: int):
-    """One tile: P (d*d, B) -> logdet (1, B) via unrolled Cholesky."""
-    P = [[P_ref[i * d + j, :] for j in range(d)] for i in range(d)]
-    L = [[None] * d for _ in range(d)]
-    inv_diag = [None] * d
-    acc_logdet = None
-    for k in range(d):
-        acc = P[k][k]
-        for m in range(k):
-            acc = acc - L[k][m] * L[k][m]
-        log_term = jnp.log(acc)  # log(L_kk^2)
-        acc_logdet = log_term if acc_logdet is None else acc_logdet + log_term
-        L[k][k] = jnp.sqrt(acc)
-        inv_diag[k] = 1.0 / L[k][k]
-        for i in range(k + 1, d):
-            a2 = P[i][k]
-            for m in range(k):
-                a2 = a2 - L[i][m] * L[k][m]
-            L[i][k] = a2 * inv_diag[k]
-    out_ref[0, :] = acc_logdet
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _pallas_logdet(P: Array, interpret: bool = False) -> Array:
-    """P: (B, d, d) SPD -> logdet (B,)."""
-    B, d, _ = P.shape
-    Bp = ((B + LANES - 1) // LANES) * LANES
-    P2 = jnp.transpose(P.reshape(B, d * d), (1, 0))
-    if Bp != B:
-        eye = jnp.eye(d, dtype=P.dtype).reshape(d * d, 1)
-        P2 = jnp.concatenate(
-            [P2, jnp.broadcast_to(eye, (d * d, Bp - B))], axis=1)
-    out = pl.pallas_call(
-        functools.partial(_logdet_kernel, d=d),
-        grid=(Bp // LANES,),
-        in_specs=[pl.BlockSpec((d * d, LANES), lambda b: (0, b),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, LANES), lambda b: (0, b),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, Bp), P.dtype),
-        interpret=interpret,
-    )(P2)
-    return out[0, :B]
+    L, inv_diag, _ = unrolled_cholesky(_entries(P, d), d)
+    et = jnp.moveaxis(eta.reshape(-1, d), 0, -1)
+    mu = unrolled_solve(L, inv_diag, [et[i] for i in range(d)], d)
+    return jnp.stack(mu, axis=-1).reshape(*batch_shape, d)
 
 
 def batched_logdet_spd(P: Array) -> Array:
     """Log-determinant of a batch of small SPD matrices (..., d, d) ->
-    (...).  Pallas on TPU (unrolled Cholesky across lanes), stock XLA
-    Cholesky elsewhere — used by the ELBO entropy term, which is otherwise
-    the single most expensive ELBO op at scale (n*T batched tiny
-    factorizations)."""
+    (...) — the ELBO entropy term, n*T factorizations per evaluation."""
     batch_shape = P.shape[:-2]
     d = P.shape[-1]
-    Pb = P.reshape(-1, d, d)
-    if _use_pallas():
-        out = _pallas_logdet(Pb)
-    else:
-        chol = jnp.linalg.cholesky(Pb)
-        out = 2.0 * jnp.sum(
-            jnp.log(jnp.diagonal(chol, axis1=-2, axis2=-1)), axis=-1)
-    return out.reshape(batch_shape)
+    _, _, logdet = unrolled_cholesky(_entries(P, d), d)
+    return logdet.reshape(batch_shape)

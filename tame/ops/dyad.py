@@ -1,7 +1,7 @@
 """Vectorized dyadic-tensor operations for the AME family.
 
 All operations are full-tensor (no Python loops over nodes/dyads/time) so XLA
-can fuse them and place the contractions on the MXU.  These replace the
+can fuse them and hand the contractions to the matrix units.  These replace the
 reference's nested dyad loops (``static_ame.py:176-187``,
 ``temporal_ame.py:200-216``, ``naive_mf.py:120-131``).
 
@@ -21,7 +21,8 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
-# TPU matmuls default to bf16 passes; statistics/metrics need full f32.
+# GPU float32 matmuls may default to TF32 (10-bit mantissa);
+# statistics/metrics need true float32.
 HIGHEST = jax.lax.Precision.HIGHEST
 
 

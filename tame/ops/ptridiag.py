@@ -18,14 +18,11 @@ the sequential solver to float32 tolerance at T up to 2048 —
 11 combine levels, including the weak-information/high-phi corner
 (tests).
 
-**Measured on TPU** (``scripts/ptridiag_bench.py``, 2026-08-21): the
-vmapped sequential scan stays throughput-bound at practical shapes
-(~190 ms for 65k node-steps whatever the (n, T) split, up to T = 1024),
-while this variant's combine constants — batched d x d solves plus the
-associative scan's gather/layout churn — cost 6-11x.  It therefore
-stays OPT-IN (``smoother="parallel"``): its value is the validated
-O(log T) formulation itself and latency-bound regimes (tiny node
-batches, very long T, CPU backends), not TPU throughput.
+It is OPT-IN (``smoother="parallel"``): its combine steps cost batched
+d x d solves plus the associative scan's gather/layout work, so it pays
+off only in latency-bound regimes (tiny node batches, very long T).
+``scripts/kernel_bench.py`` times it against the scan on the GPU
+(PERF.md).
 
 Inputs are the model quantities, not raw precision blocks: per-time
 observation information ``J_t = P_obs[t]`` (PSD) and information vector

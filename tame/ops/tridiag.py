@@ -24,8 +24,7 @@ covariances and lag-1 cross-covariances:
 
 Everything is ``lax.scan`` over T and ``vmap`` over nodes; the sequential
 depth is T (50 at the north-star scale) of tiny d x d ops, with all nodes
-in parallel.  A fused Pallas version (whole solve in one kernel, nodes on
-lanes) lives in ``tame.ops.fused_smoother``.
+in parallel.
 
 **Time-parallel variant.**  A first associative-scan attempt linearized
 the forward Riccati recursion to 2d x 2d transfer-matrix products via
@@ -36,8 +35,8 @@ systems), and renormalization cannot fix a conditioning failure.  The
 numerically sound O(log T)-depth formulation — the conditional-Gaussian
 element parametrization of Särkkä & García-Fernández (2021) — is
 implemented in :mod:`tame.ops.ptridiag` and validated against this
-solver to float32 tolerance at T up to 512; measured on TPU it stays
-opt-in (``smoother="parallel"``) — see the ptridiag module notes.
+solver to float32 tolerance at T up to 512; it stays opt-in
+(``smoother="parallel"``) — see the ptridiag module notes.
 """
 
 from __future__ import annotations

@@ -1,16 +1,14 @@
 """Communication/compute analysis of the compiled sharded fit.
 
-The multi-host scaling claim (BASELINE.md: >= 80 % efficiency at N >= 2
-hosts) cannot be *measured* in this environment (one real chip; virtual CPU
-devices share two physical cores), so it is *argued* from the compiled
-program itself: GSPMD inserts explicit collective ops (``all-reduce``,
-``all-gather``, ``collective-permute``, ...) into the HLO, and their shapes
-are the exact per-iteration communication volume.  This module extracts
-them and compares against the FLOP count from the compiler's cost analysis
-— the numbers behind SCALING.md.
+The multi-device scaling claim (BASELINE.md: >= 80 % efficiency at N >= 2
+hosts) is *argued* from the compiled program itself: GSPMD inserts
+explicit collective ops (``all-reduce``, ``all-gather``,
+``collective-permute``, ...) into the HLO, and their shapes are the exact
+per-iteration communication volume.  This module extracts them and
+compares against the FLOP count from the compiler's cost analysis.
 
 The reference has no distributed execution of any kind (SURVEY.md §2);
-this analysis layer is new TPU-native surface.
+this analysis layer is new surface.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Multi-host distributed execution: initialization and scaling harness.
 
 The reference is single-process with no communication backend at all
-(SURVEY.md §5).  TPU-native equivalent: ``jax.distributed.initialize`` +
-GSPMD.  Within a slice, collectives ride ICI; across hosts, DCN.  Every
-host runs the same program; arrays are globally sharded over the full
-multi-host mesh built here.
+(SURVEY.md §5).  Here: ``jax.distributed.initialize`` + GSPMD, with
+XLA handing the collectives to NCCL (NVLink within a host, the network
+across hosts).  Every process runs the same program; arrays are globally
+sharded over the full multi-process mesh built here.
 
 On a single host these helpers degrade gracefully (no-op initialize,
 meshes over local devices), so the same launcher script works from one
-chip to a pod slice.
+GPU to many hosts.
 """
 
 from __future__ import annotations
@@ -24,25 +24,23 @@ from tame.parallel.mesh import make_mesh
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> bool:
-    """Initialize the multi-host runtime.
+    """Initialize the multi-process runtime.
 
-    With no arguments, relies on the TPU environment's auto-bootstrap
-    (GCE metadata / hostnames); explicit arguments support manual
-    orchestration.  Returns True when running multi-process, False when
-    single-process (already initialized counts as its current state).
+    ``coordinator_address`` (``host:port``), or else the
+    ``COORDINATOR_ADDRESS`` environment variable, names the coordinator;
+    ``num_processes`` and ``process_id`` go with it.  With neither, the
+    run stays single-process.  Returns True when running multi-process,
+    False when single-process (already initialized counts as its current
+    state).
     """
-    try:
-        if coordinator_address is not None:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes, process_id=process_id)
-        elif jax.process_count() == 1:
-            # Only attempt auto-init when the env looks multi-host.
-            import os
+    import os
 
-            if os.environ.get("COORDINATOR_ADDRESS") or os.environ.get(
-                    "MEGASCALE_COORDINATOR_ADDRESS"):
-                jax.distributed.initialize()
+    address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
+    try:
+        if address is not None:
+            jax.distributed.initialize(
+                coordinator_address=address,
+                num_processes=num_processes, process_id=process_id)
     except RuntimeError:
         # Already initialized.
         pass
@@ -74,9 +72,9 @@ def measure_scaling_efficiency(fit_fn, Y, init, device_counts,
 
     Caveat: on a virtual CPU mesh (``xla_force_host_platform_device_count``)
     all "devices" share the host's physical cores, so wall-clock efficiency
-    there measures sharding *overhead*, not real speedup — see SCALING.md
-    for the analytic communication/compute model that carries the
-    multi-host claim.
+    there measures sharding *overhead*, not real speedup —
+    :mod:`tame.parallel.comm_analysis` gives the communication volume
+    from the compiled program instead.
     """
     from tame.parallel.mesh import shard_fit_inputs
 

@@ -1,8 +1,8 @@
 """Device-mesh construction and sharding layouts for multi-chip execution.
 
 The reference is single-process/single-thread Python with no distributed
-capability of any kind (SURVEY.md §2); every capability here is new,
-TPU-native design:
+capability of any kind (SURVEY.md §2); every capability here is new
+design:
 
 * ``nodes`` mesh axis — shards the node axis n.  The n x n dyad contraction
   becomes row-local matmuls against an all-gathered (n, T, r) means tensor
@@ -14,7 +14,8 @@ TPU-native design:
   SMC particles.
 
 All sharding is expressed through ``jax.sharding.NamedSharding`` +
-``jit``/GSPMD; collectives ride ICI within a slice and DCN across hosts.
+``jit``/GSPMD; XLA hands the collectives to NCCL.  The mesh follows the
+algorithm: the GPUs of a host reach each other all to all over NVLink.
 """
 
 from __future__ import annotations

@@ -217,7 +217,7 @@ def compute_elbo_gap(elbo_history: List[float],
 
 
 # ---------------------------------------------------------------------------
-# MCMC chain diagnostics (new TPU-native surface: the reference has no
+# MCMC chain diagnostics (new surface: the reference has no
 # sampler, so no counterpart exists — VI-side convergence tracking above is
 # its closest analog, reference ``diagnostics.py:446-492``)
 # ---------------------------------------------------------------------------

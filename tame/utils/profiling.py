@@ -5,7 +5,7 @@ around ``fit()`` (reference ``experiments/utils.py:200-203``) and console
 prints.  This module provides the production story:
 
 * :func:`trace` — ``jax.profiler`` trace context (view in TensorBoard /
-  xprof) for per-kernel timing on TPU;
+  xprof) for per-kernel device timing;
 * :func:`benchmark` — warm-up + min-of-k wall timing with
   ``block_until_ready`` (the honest way to time dispatched device work);
 * :class:`MetricsLogger` — append-only JSONL metric stream with host

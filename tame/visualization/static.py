@@ -2,7 +2,7 @@
 
 Functional parity with the reference's ``src/visualization/static.py`` (same
 function names, signatures and figure content); implementations are fresh
-matplotlib on host-gathered numpy arrays — plotting is not TPU work.
+matplotlib on host-gathered numpy arrays — plotting is not device work.
 """
 
 from __future__ import annotations

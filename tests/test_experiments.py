@@ -4,6 +4,7 @@ integration script, ``tests/test_integration.py``)."""
 
 import json
 import pickle
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -147,7 +148,7 @@ class TestExperimentsEndToEnd:
     def test_demo_runs(self, tmp_path, monkeypatch, capsys):
         monkeypatch.chdir(tmp_path)
         import sys
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
         import demo
 
         results = demo.main(lr=0.5, max_iter=4, outdir=str(tmp_path / "o"),

@@ -376,59 +376,6 @@ class TestSmoothedEngine:
         assert (hs["reconstruction_error"][-1]
                 <= hg["reconstruction_error"][-1] * 1.05)
 
-    @pytest.mark.slow
-    def test_fused_smoother_kernel_matches_scan(self):
-        """Pallas forward-backward kernel vs the vmapped lax.scan solver
-        on random SPD block-tridiagonal systems (interpret mode on CPU)."""
-        from tame.ops.fused_smoother import fused_smoother
-        from tame.ops.tridiag import block_tridiag_smoother
-
-        key = jax.random.PRNGKey(0)
-        n, T, d = 5, 7, 6
-        A = jax.random.normal(key, (n, T, d, d))
-        D = jnp.einsum("ntij,ntkj->ntik", A, A) + 3.0 * jnp.eye(d)
-        O = 0.3 * jax.random.normal(jax.random.fold_in(key, 1), (d, d))
-        b = jax.random.normal(jax.random.fold_in(key, 2), (n, T, d))
-
-        ref = jax.vmap(lambda Di, bi: block_tridiag_smoother(Di, O, bi))(
-            D, b)
-        got = fused_smoother(D, O, b, interpret=True)
-        assert np.allclose(np.asarray(ref.mean), np.asarray(got.mean),
-                           atol=1e-4)
-        assert np.allclose(np.asarray(ref.cov), np.asarray(got.cov),
-                           atol=1e-4)
-        assert np.allclose(np.asarray(ref.cross_cov),
-                           np.asarray(got.cross_cov), atol=1e-4)
-        assert np.allclose(np.asarray(ref.logdet), np.asarray(got.logdet),
-                           rtol=1e-5)
-
-    @pytest.mark.slow
-    def test_fused_smoothed_fit_matches_scan_fit(self):
-        """Whole smoothed fit through the Pallas kernel path vs the scan
-        path.  Pre-convergence trajectories are chaotic (a contracting map
-        only near the fixed point), so per-step float noise amplifies —
-        the meaningful check is agreement of the converged fixed point."""
-        from tame.inference.smoothed import (
-            fit_cavi_smoothed,
-            init_smoothed_state,
-        )
-
-        model = TemporalAMEModel(n_nodes=6, n_time=4, latent_dim=1, seed=3)
-        Y, _ = model.generate_data(return_latents=True)
-        init = init_smoothed_state(jax.random.PRNGKey(0), 6, 4, 4)
-        a = fit_cavi_smoothed(Y, model.params, init, max_iter=256,
-                              learning_rate=0.5, tolerance=0.0,
-                              fused=False)
-        b = fit_cavi_smoothed(Y, model.params, init, max_iter=256,
-                              learning_rate=0.5, tolerance=0.0, fused=True)
-        assert np.allclose(np.asarray(a.state.X_mean),
-                           np.asarray(b.state.X_mean), atol=1e-3)
-        assert np.allclose(np.asarray(a.state.X_cov),
-                           np.asarray(b.state.X_cov), atol=1e-3)
-        ea = float(np.asarray(a.elbo_history)[255])
-        eb = float(np.asarray(b.elbo_history)[255])
-        assert abs(ea - eb) / abs(ea) < 1e-4
-
     def test_smoothed_state_shapes(self):
         from tame.inference import TemporalAMESmoothedVI
 
@@ -646,8 +593,8 @@ class TestStatsDiagnostics:
         assert np.max(np.abs(eh_e - eh_s) / np.abs(eh_e)) < 1e-4
         assert np.max(np.abs(mh_e - mh_s) / np.abs(mh_e)) < 1e-4
         # diagnostics never feed back into updates — identical on CPU;
-        # on TPU (TAME_TEST_TPU=1) the two programs fuse differently and
-        # the update itself rounds differently, so compare to tolerance
+        # on a GPU the two programs fuse differently and the update
+        # itself rounds differently, so compare to tolerance
         assert np.allclose(np.asarray(exact.X_mean),
                            np.asarray(stats.X_mean), atol=1e-3)
 
@@ -658,23 +605,6 @@ class TestStatsDiagnostics:
                                0.1, 0.5)
         with pytest.raises(ValueError, match="diag_mode"):
             cavi.fit_cavi(Y, model.params, init, diag_mode="bogus")
-
-    def test_dual_contract_kernel(self):
-        """One-pass row+column contraction vs two einsums (bf16-quantized
-        reference), including the padded path."""
-        from tame.ops.dual_contract import dual_contract
-
-        key = jax.random.PRNGKey(0)
-        T, n, m = 3, 20, 4
-        y0 = jax.random.normal(key, (T, n, n))
-        Z = jax.random.normal(jax.random.fold_in(key, 1), (T, n, m))
-        row, col = dual_contract(y0, Z, interpret=True)
-        y0b = y0.astype(jnp.bfloat16).astype(jnp.float32)
-        Zb = Z.astype(jnp.bfloat16).astype(jnp.float32)
-        rref = jnp.einsum("tij,tjm->tim", y0b, Zb)
-        cref = jnp.einsum("tij,tim->tjm", y0b, Zb)
-        assert np.allclose(np.asarray(row), np.asarray(rref), atol=1e-5)
-        assert np.allclose(np.asarray(col), np.asarray(cref), atol=1e-5)
 
     @pytest.mark.slow
     def test_mixed_stats_matches_exact_history(self):
@@ -773,132 +703,6 @@ class TestWarmInit:
         assert np.isfinite(h["elbo"][-1])
         with pytest.raises(ValueError, match="init_mode"):
             TemporalAMEStructuredMFVI(model, init_mode="bogus")
-
-
-@pytest.mark.slow
-class TestFusedFit:
-    """Whole-fit Pallas megakernel (tame/ops/fused_fit.py) vs the XLA path.
-
-    On CPU the kernel runs in Pallas interpret mode (fused=True forces it);
-    auto-selection stays off the CPU backend, so these tests exercise the
-    exact code path the TPU runs while the rest of the suite is unaffected.
-    """
-
-    def _setup(self, n=12, T=5, r=2, seed=7, rho=0.5, structure="full"):
-        model = TemporalAMEModel(n_nodes=n, n_time=T, latent_dim=r,
-                                 rho_dyadic=rho, seed=seed)
-        Y, _ = model.generate_data(return_latents=True)
-        init = cavi.init_state(jax.random.PRNGKey(seed), n, T, 2 + 2 * r,
-                               structure, 0.1, 0.5)
-        return model, Y, init
-
-    @pytest.mark.parametrize("structure,corrected", [
-        ("full", False), ("full", True), ("diag", False), ("block", False)])
-    def test_matches_unfused(self, structure, corrected):
-        model, Y, init = self._setup(structure=structure)
-        kw = dict(structure=structure, update_mode="jacobi", max_iter=25,
-                  learning_rate=0.7, tolerance=1e-5, corrected=corrected)
-        ref = cavi.fit_cavi(Y, model.params, init, fused=False, **kw)
-        fz = cavi.fit_cavi(Y, model.params, init, fused=True, **kw)
-        eh_r = np.asarray(ref.elbo_history)[:25]
-        eh_f = np.asarray(fz.elbo_history)[:25]
-        assert np.nanmax(np.abs(eh_r - eh_f) / np.abs(eh_r)) < 1e-4
-        assert np.allclose(np.asarray(ref.X_mean), np.asarray(fz.X_mean),
-                           atol=1e-4)
-        assert np.allclose(np.asarray(ref.X_cov), np.asarray(fz.X_cov),
-                           atol=1e-4)
-        assert int(ref.n_iter) == int(fz.n_iter)
-
-    def test_convergence_freeze(self):
-        """After the tolerance/patience rule fires, state and histories
-        freeze: flags, n_iter and NaN padding match the early-exit path."""
-        model, Y, init = self._setup(n=8, T=4)
-        kw = dict(structure="full", update_mode="jacobi", max_iter=60,
-                  learning_rate=0.7, tolerance=1e-3)
-        ref = cavi.fit_cavi(Y, model.params, init, fused=False, **kw)
-        fz = cavi.fit_cavi(Y, model.params, init, fused=True, **kw)
-        assert bool(ref.converged) and bool(fz.converged)
-        assert int(ref.n_iter) == int(fz.n_iter)
-        it = int(ref.n_iter)
-        assert np.all(np.isnan(np.asarray(fz.elbo_history)[it:]))
-        assert np.allclose(np.asarray(ref.X_mean), np.asarray(fz.X_mean),
-                           atol=1e-4)
-
-    @pytest.mark.parametrize("num_blocks", [4, 12])
-    def test_block_mode_matches_unfused(self, num_blocks):
-        """The engine-default update_mode='block' runs in the kernel too:
-        sequential in-kernel phases must reproduce cavi_step_block."""
-        model, Y, init = self._setup(n=12, T=5)
-        kw = dict(structure="full", update_mode="block",
-                  num_blocks=num_blocks, max_iter=20, learning_rate=1.0,
-                  tolerance=1e-6)
-        ref = cavi.fit_cavi(Y, model.params, init, fused=False, **kw)
-        fz = cavi.fit_cavi(Y, model.params, init, fused=True, **kw)
-        eh_r = np.asarray(ref.elbo_history)[:20]
-        eh_f = np.asarray(fz.elbo_history)[:20]
-        assert np.nanmax(np.abs(eh_r - eh_f) / np.abs(eh_r)) < 1e-4
-        assert np.allclose(np.asarray(ref.X_mean), np.asarray(fz.X_mean),
-                           atol=1e-4)
-        assert np.allclose(np.asarray(ref.X_cov), np.asarray(fz.X_cov),
-                           atol=1e-4)
-        assert int(ref.n_iter) == int(fz.n_iter)
-
-    def test_default_engine_config_is_fused_supported(self):
-        """The README quick-start configuration (Good SMF, block updates,
-        demo scale) must be inside the megakernel envelope, so the default
-        TPU path hits the kernel (VERDICT r2).  n=15 -> num_blocks=15."""
-        from tame.ops import fused_fit as ff
-
-        assert ff.fused_fit_supported(
-            15, 10, 6, structure="full", update_mode="block",
-            diag_mode="exact", mixed_precision=False, elbo_every=1,
-            num_blocks=15)
-        # envelope reaches n ~ 100 at demo-scale T
-        assert ff.fused_fit_supported(
-            100, 10, 6, structure="full", update_mode="block",
-            diag_mode="exact", mixed_precision=False, elbo_every=1,
-            num_blocks=10)
-
-    def test_segment_carry_matches_single_run(self):
-        """The convergence carry (last_elbo/pat_count) continues a fit in
-        segments through the KERNEL with the same stopping behavior as
-        one uninterrupted kernel run (the in-fit checkpointing path)."""
-        model, Y, init = self._setup(n=8, T=4)
-        kw = dict(structure="full", update_mode="jacobi",
-                  learning_rate=0.7, tolerance=1e-3, fused=True)
-        full = cavi.fit_cavi(Y, model.params, init, max_iter=60, **kw)
-        assert bool(full.converged)
-        n_full = int(full.n_iter)
-        assert n_full > 15  # split point must fall before convergence
-
-        seg1 = cavi.fit_cavi(Y, model.params, init, max_iter=15, **kw)
-        st = cavi.CaviState(X_mean=seg1.X_mean, X_cov=seg1.X_cov)
-        seg2 = cavi.fit_cavi(Y, model.params, st, max_iter=45,
-                             carry_elbo=float(seg1.last_elbo),
-                             carry_patience=int(seg1.pat_count), **kw)
-        assert bool(seg2.converged)
-        assert int(seg1.n_iter) + int(seg2.n_iter) == n_full
-        assert np.array_equal(np.asarray(full.X_mean),
-                              np.asarray(seg2.X_mean))
-        eh = np.concatenate([np.asarray(seg1.elbo_history)[:15],
-                             np.asarray(seg2.elbo_history)[:n_full - 15]])
-        assert np.array_equal(eh, np.asarray(full.elbo_history)[:n_full])
-
-    def test_unsupported_config_rejected(self):
-        model, Y, init = self._setup(n=8, T=4)
-        with pytest.raises(ValueError, match="fused=True requires"):
-            cavi.fit_cavi(Y, model.params, init, diag_mode="stats",
-                          fused=True)
-        with pytest.raises(ValueError, match="fused=True requires"):
-            cavi.fit_cavi(Y, model.params, init, update_mode="seq",
-                          fused=True)
-
-    def test_auto_off_on_cpu(self):
-        """fused='auto' must not pick the interpreted kernel on CPU."""
-        model, Y, init = self._setup(n=6, T=3)
-        out = cavi.fit_cavi(Y, model.params, init, max_iter=3,
-                            learning_rate=0.7, tolerance=0.0)
-        assert int(out.n_iter) == 3  # unfused path ran (fast on CPU)
 
 
 class TestMaskedFit:
@@ -1202,8 +1006,7 @@ class TestMaskedSmoothed:
         Y = jnp.asarray(model.Y)
         init = init_smoothed_state(jax.random.PRNGKey(1), 10, 5, 4, 0.1)
         full = (1.0 - jnp.eye(10))[:, :, None] * jnp.ones((10, 10, 5))
-        kw = dict(max_iter=30, learning_rate=0.8, tolerance=0.0,
-                  fused=False)
+        kw = dict(max_iter=30, learning_rate=0.8, tolerance=0.0)
         a = fit_cavi_smoothed(Y, model.params, init, **kw)
         b = fit_cavi_smoothed(Y, model.params, init, mask=full, **kw)
         assert np.allclose(np.asarray(a.state.X_mean),
@@ -1222,8 +1025,7 @@ class TestMaskedSmoothed:
         mask = random_dyad_mask(jax.random.PRNGKey(3), 10, 5, 0.3)
         Yg = jnp.where(mask[..., None] == 0, 1e6, Y)
         init = init_smoothed_state(jax.random.PRNGKey(1), 10, 5, 4, 0.1)
-        kw = dict(max_iter=25, learning_rate=0.8, tolerance=0.0,
-                  fused=False)
+        kw = dict(max_iter=25, learning_rate=0.8, tolerance=0.0)
         c = fit_cavi_smoothed(Y, model.params, init, mask=mask, **kw)
         d = fit_cavi_smoothed(Yg, model.params, init, mask=mask, **kw)
         assert np.array_equal(np.asarray(c.state.X_mean),
@@ -1281,127 +1083,11 @@ class TestNaNCodedMissing:
         init = init_smoothed_state(jax.random.PRNGKey(6), 10, 5, 4, 0.1)
         out = fit_cavi_smoothed(Ynan, params, init, max_iter=15,
                                 learning_rate=0.5, tolerance=0.0,
-                                mask=mask, fused=False)
+                                mask=mask)
         assert np.isfinite(np.asarray(out.elbo_history)[:15]).all()
         res = fit_em(Ynan, params, n_em=3, mask=mask)
         assert np.isfinite(res.history["elbo"]).all()
         assert np.isfinite(res.history["sigma2"][-1])
-
-
-class TestPackedMask:
-    """Int8 packed-mask contractions (tame.ops.masked_contract): masked
-    fits read the 0/1 observation mask at 1 byte/entry through a Pallas
-    kernel instead of streaming it as bf16/f32 — the lever that closes
-    the masked-vs-dense per-iteration gap at scale.  Forced on (CPU
-    interpret mode) via TAME_PACKED_MASK=1."""
-
-    def _setup(self, n=12, T=4, r=2, seed=3):
-        model = TemporalAMEModel(n_nodes=n, n_time=T, latent_dim=r,
-                                 seed=seed)
-        Y, _ = model.generate_data(return_latents=True)
-        from tame.models import random_dyad_mask
-
-        mask = random_dyad_mask(jax.random.PRNGKey(5), n, T, 0.35)
-        init = cavi.init_state(jax.random.PRNGKey(0), n, T, 2 + 2 * r,
-                               "full", 0.1, 0.5)
-        return model, jnp.asarray(Y), mask, init
-
-    def test_kernel_matches_einsum(self):
-        from tame.ops.masked_contract import (
-            pack_mask,
-            packed_rows_contract,
-        )
-
-        rng = np.random.default_rng(0)
-        n, T, K, nb = 20, 3, 5, 4
-        mask = jnp.asarray((rng.random((n, n, T)) > 0.4)
-                           .astype(np.float32))
-        mask = mask * (1 - jnp.eye(n)[:, :, None])
-        Z = jnp.asarray(rng.normal(size=(n, T, K)).astype(np.float32))
-        pm = pack_mask(mask, nb)
-        bs = n // nb
-        got = jnp.concatenate(
-            [packed_rows_contract(pm[k], Z, interpret=True)[:bs]
-             for k in range(nb)], 0)
-        Zb = Z.astype(jnp.bfloat16).astype(jnp.float32)
-        ref = jnp.einsum("ijt,jtk->itk", mask, Zb)
-        assert np.allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
-
-    @pytest.mark.slow
-    @pytest.mark.parametrize("update_mode", ["jacobi", "block"])
-    def test_packed_fit_matches_dense(self, update_mode, monkeypatch):
-        """Packed-mask fits track the dense-mask fits within bf16
-        feature quantization (the kernel's panels are bf16)."""
-        model, Y, mask, init = self._setup()
-        kw = dict(structure="full", update_mode=update_mode, max_iter=15,
-                  learning_rate=0.6, tolerance=0.0, mask=mask,
-                  corrected=True, diag_mode="stats")
-        if update_mode == "block":
-            kw["num_blocks"] = 4
-        monkeypatch.setenv("TAME_PACKED_MASK", "0")
-        a = cavi.fit_cavi(Y, model.params, init, **kw)
-        monkeypatch.setenv("TAME_PACKED_MASK", "1")
-        b = cavi.fit_cavi(Y, model.params, init, **kw)
-        assert np.max(np.abs(np.asarray(a.X_mean)
-                             - np.asarray(b.X_mean))) < 2e-2
-        ea = np.asarray(a.elbo_history)[:15]
-        eb = np.asarray(b.elbo_history)[:15]
-        assert np.max(np.abs((ea - eb) / ea)) < 1e-2
-
-    @pytest.mark.slow
-    def test_packed_smoothed_converges_to_same_fixed_point(self,
-                                                           monkeypatch):
-        """The smoothed family amplifies per-step float noise
-        pre-convergence (cf. the fused-kernel test), so the meaningful
-        packed-vs-dense check is the converged fixed point."""
-        from tame.inference.smoothed import (
-            fit_cavi_smoothed,
-            init_smoothed_state,
-        )
-
-        model, Y, mask, _ = self._setup()
-        sinit = init_smoothed_state(jax.random.PRNGKey(1), 12, 4, 6, 0.1)
-        kw = dict(max_iter=200, tolerance=0.0, mask=mask)
-        monkeypatch.setenv("TAME_PACKED_MASK", "0")
-        a = fit_cavi_smoothed(Y, model.params, sinit, **kw)
-        monkeypatch.setenv("TAME_PACKED_MASK", "1")
-        b = fit_cavi_smoothed(Y, model.params, sinit, **kw)
-        assert np.max(np.abs(np.asarray(a.state.X_mean)
-                             - np.asarray(b.state.X_mean))) < 5e-2
-        ea = float(np.asarray(a.elbo_history)[199])
-        eb = float(np.asarray(b.elbo_history)[199])
-        assert abs(ea - eb) / abs(ea) < 1e-3
-
-    @pytest.mark.slow
-    def test_packed_never_reads_masked_entries(self, monkeypatch):
-        """Garbage in hidden dyads must not change one bit of the packed
-        fit (the mask packing reads the MASK, never Y)."""
-        model, Y, mask, init = self._setup()
-        monkeypatch.setenv("TAME_PACKED_MASK", "1")
-        Yg = jnp.where(mask[..., None] == 0, 1e6, Y)
-        kw = dict(structure="full", update_mode="jacobi", max_iter=10,
-                  learning_rate=0.6, tolerance=0.0, mask=mask)
-        a = cavi.fit_cavi(Y, model.params, init, **kw)
-        b = cavi.fit_cavi(Yg, model.params, init, **kw)
-        assert np.array_equal(np.asarray(a.X_mean), np.asarray(b.X_mean))
-
-
-    def test_packed_smoothed_block_mode(self, monkeypatch):
-        """Regression: packed masks must be packed with the BLOCK count
-        when the smoothed fit uses block updates (was packed with 1
-        block and raised at trace time)."""
-        from tame.inference.smoothed import (
-            fit_cavi_smoothed,
-            init_smoothed_state,
-        )
-
-        model, Y, mask, _ = self._setup(n=12, T=4)
-        sinit = init_smoothed_state(jax.random.PRNGKey(1), 12, 4, 6, 0.1)
-        monkeypatch.setenv("TAME_PACKED_MASK", "1")
-        out = fit_cavi_smoothed(Y, model.params, sinit, max_iter=5,
-                                tolerance=0.0, mask=mask,
-                                update_mode="block", num_blocks=4)
-        assert np.isfinite(np.asarray(out.elbo_history)[:5]).all()
 
 
 class TestSmoothedBlockUpdate:

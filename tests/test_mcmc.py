@@ -582,8 +582,8 @@ class TestNUTSAtScale:
     """Sampler evidence beyond toy sizes (north-star config 4): n=64
     chains sharded over the CPU mesh, split-R-hat convergence on
     identified dyad-mean scalars, and SMF-vs-NUTS moment agreement with
-    ESS-scaled tolerances.  The real-chip numbers live in
-    MCMC_BENCH.json (scripts/mcmc_bench.py, n=128/T=16/r=2/64 chains)."""
+    ESS-scaled tolerances.  ``scripts/mcmc_bench.py`` measures the same
+    on one GPU (n=128/T=16/r=2/64 chains)."""
 
     def test_nuts_n64_rhat_and_moment_agreement(self):
         from tame.inference import TemporalAMENUTS, TemporalAMEStructuredMFVI

@@ -1,7 +1,8 @@
-"""Core-op tests: dyadic ops and the batched Cholesky solve kernel.
+"""Core-op tests: dyadic ops, the unrolled batched SPD solve and the
+block-tridiagonal smoothers.
 
-The Pallas kernel is validated in interpreter mode on CPU against the stock
-XLA path and direct numpy linalg.
+The SPD path and the smoothers are checked against float64 numpy linalg
+on the same systems.
 """
 
 import jax
@@ -11,8 +12,7 @@ import pytest
 
 from tame.ops import dyad as dyad_ops
 from tame.ops.cholesky import (
-    _pallas_spd_solve_inv,
-    _xla_spd_solve_inv,
+    batched_logdet_spd,
     batched_spd_solve,
     batched_spd_solve_inv,
 )
@@ -24,39 +24,46 @@ def _random_spd(key, B, d):
 
 
 class TestCholeskySolve:
-    @pytest.mark.slow
-    @pytest.mark.parametrize("d", [4, 6, 10])
-    def test_pallas_matches_numpy(self, d):
+    @pytest.mark.parametrize("d", [2, 4, 6, 10])
+    def test_unrolled_matches_float64(self, d):
         key = jax.random.PRNGKey(d)
         k1, k2 = jax.random.split(key)
-        B = 37  # deliberately not a multiple of 128 (padding path)
+        B = 37  # no size the algorithm could specialise on
         P = _random_spd(k1, B, d)
         eta = jax.random.normal(k2, (B, d))
 
-        mu, cov = _pallas_spd_solve_inv(P, eta, interpret=True)
+        mu, cov = batched_spd_solve_inv(P, eta)
         P_np = np.asarray(P, dtype=np.float64)
         eta_np = np.asarray(eta, dtype=np.float64)
         mu_np = np.linalg.solve(P_np, eta_np[..., None])[..., 0]
         cov_np = np.linalg.inv(P_np)
-        assert np.allclose(np.asarray(mu), mu_np, atol=1e-3)
-        assert np.allclose(np.asarray(cov), cov_np, atol=1e-3)
+        assert np.allclose(np.asarray(mu), mu_np, atol=1e-4)
+        assert np.allclose(np.asarray(cov), cov_np, atol=1e-4)
 
-    def test_pallas_solve_only(self):
-        key = jax.random.PRNGKey(0)
+    @pytest.mark.parametrize("shape", [(1,), (13,), (3, 5)])
+    def test_solve_only_and_logdet_match_float64(self, shape):
+        key = jax.random.PRNGKey(len(shape) + shape[0])
         k1, k2 = jax.random.split(key)
-        P = _random_spd(k1, 16, 6)
-        eta = jax.random.normal(k2, (16, 6))
-        mu = _pallas_spd_solve_inv(P, eta, interpret=True,
-                                   with_inverse=False)
-        mu_ref, _ = _xla_spd_solve_inv(P, eta)
-        assert np.allclose(np.asarray(mu), np.asarray(mu_ref), atol=1e-4)
+        d = 6
+        B = int(np.prod(shape))
+        P = _random_spd(k1, B, d).reshape(*shape, d, d)
+        eta = jax.random.normal(k2, (*shape, d))
+        mu = batched_spd_solve(P, eta)
+        logdet = batched_logdet_spd(P)
+        assert mu.shape == (*shape, d) and logdet.shape == shape
+        P_np = np.asarray(P, dtype=np.float64)
+        mu_np = np.linalg.solve(
+            P_np, np.asarray(eta, np.float64)[..., None])[..., 0]
+        assert np.allclose(np.asarray(mu), mu_np, atol=1e-4)
+        assert np.allclose(np.asarray(logdet),
+                           np.linalg.slogdet(P_np)[1], rtol=1e-5)
 
     def test_xla_path_correct(self):
         key = jax.random.PRNGKey(3)
         k1, k2 = jax.random.split(key)
         P = _random_spd(k1, 8, 6)
         eta = jax.random.normal(k2, (8, 6))
-        mu, cov = _xla_spd_solve_inv(P, eta)
+        mu, cov = jax.jit(batched_spd_solve_inv)(P, eta)
         assert np.allclose(np.asarray(jnp.matmul(P, cov)),
                            np.eye(6), atol=1e-3)
         assert np.allclose(
@@ -138,6 +145,30 @@ class TestBlockTridiagSmoother:
         assert sign > 0
         assert float(out.logdet) == pytest.approx(logdet_dense, rel=1e-4)
 
+    @pytest.mark.parametrize("T,d", [(2, 2), (5, 6), (4, 10)])
+    def test_matches_dense_sizes(self, T, d):
+        """Means, marginal and lag-1 covariances and the log-determinant
+        against a float64 dense solve, up to the engine's widest block."""
+        from tame.ops.tridiag import block_tridiag_smoother, dense_precision
+
+        D, O, b = self._random_system(jax.random.PRNGKey(10 * T + d), T, d)
+        out = block_tridiag_smoother(D, O, b)
+        P = np.asarray(dense_precision(D, O), dtype=np.float64)
+        cov_dense = np.linalg.inv(P)
+        mean_dense = cov_dense @ np.asarray(b, np.float64).ravel()
+        assert np.allclose(np.asarray(out.mean).ravel(), mean_dense,
+                           atol=1e-4)
+        for t in range(T):
+            sl = slice(t * d, (t + 1) * d)
+            assert np.allclose(np.asarray(out.cov[t]), cov_dense[sl, sl],
+                               atol=1e-4), t
+            if t < T - 1:
+                nx = slice((t + 1) * d, (t + 2) * d)
+                assert np.allclose(np.asarray(out.cross_cov[t]),
+                                   cov_dense[sl, nx], atol=1e-4), t
+        assert float(out.logdet) == pytest.approx(np.linalg.slogdet(P)[1],
+                                                  rel=1e-5)
+
     def test_single_time_step(self):
         from tame.ops.tridiag import block_tridiag_smoother
 
@@ -200,6 +231,10 @@ class TestParallelSmoother:
         assert abs(float(ref.logdet) - float(got.logdet)) \
             / abs(float(ref.logdet)) < 1e-4
 
+    @pytest.mark.parametrize("T,d", [(2, 4), (5, 10)])
+    def test_matches_sequential_small(self, T, d):
+        self._compare(T, d=d)
+
     @pytest.mark.slow
     @pytest.mark.parametrize("T", [1, 2, 3, 8, 64])
     def test_matches_sequential(self, T):
@@ -215,9 +250,9 @@ class TestParallelSmoother:
         self._compare(512, phi=0.97, pscale=0.05, seed=1)
 
 
-def test_explicit_fused_with_parallel_smoother_raises():
-    """A user FORCING the Pallas kernel must not silently get the
-    parallel-scan solver instead (advisor finding, round 4)."""
+def test_parallel_smoother_option_matches_sequential_fit():
+    """``smoother="parallel"`` runs the associative-scan solver inside the
+    smoothed fit and reaches the sequential solver's iterates."""
     from tame.inference.smoothed import (
         fit_cavi_smoothed,
         init_smoothed_state,
@@ -227,13 +262,15 @@ def test_explicit_fused_with_parallel_smoother_raises():
     model = TemporalAMEModel(n_nodes=6, n_time=3, latent_dim=1, seed=0)
     Y, _ = model.generate_data(return_latents=True)
     st = init_smoothed_state(jax.random.PRNGKey(0), 6, 3, 4)
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        fit_cavi_smoothed(jnp.asarray(Y), model.params, st, max_iter=2,
-                          fused=True, smoother="parallel")
-    # the "auto" default yields to the parallel choice without error
-    out = fit_cavi_smoothed(jnp.asarray(Y), model.params, st, max_iter=2,
-                            smoother="parallel")
-    assert int(out.n_iter) == 2
+    outs = [fit_cavi_smoothed(jnp.asarray(Y), model.params, st, max_iter=3,
+                              tolerance=0.0, smoother=sm)
+            for sm in ("sequential", "parallel")]
+    assert [int(o.n_iter) for o in outs] == [3, 3]
+    assert np.allclose(np.asarray(outs[0].state.X_mean),
+                       np.asarray(outs[1].state.X_mean), atol=1e-4)
+    with pytest.raises(ValueError, match="unknown smoother"):
+        fit_cavi_smoothed(jnp.asarray(Y), model.params, st, max_iter=1,
+                          smoother="fused")
 
 
 @pytest.mark.slow
